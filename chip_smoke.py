@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--batches N]
+    python3 chip_smoke.py [--seed N] [--batches N] [--phases a,b,...]
 
 Needs a CUDA device and `nvcc`; without a device it exits non-zero and prints
 no result. It imports the port only (`fewshot_detection_tpu_torch`), builds
-the port's CUDA kernel from the sources in this checkout, and runs four
-phases, each printing one JSON line:
+the port's CUDA kernels from the sources in this checkout, and runs these
+phases, each printing JSON lines:
 
   device   the card as nvidia-smi names it, its power limit, torch/CUDA versions
-  build    nvcc on csrc/nms.cu, seconds taken
+  build    nvcc on csrc/nms.cu and csrc/bn_sums.cu, side by side, seconds taken
   kernels  `nms_rows` (the CUDA kernel) against `nms_rows_reference` (plain
            PyTorch) on the card: keep masks must be bit-equal at the main
-           path's shapes and on an adversarial set
+           path's shapes and on an adversarial set; `bn_sums` forward and
+           backward against their plain versions, float32 and bfloat16, at the
+           training path's extreme shapes and at awkward ones: the sums within
+           a stated bound of a float64 sum, two launches bit-equal, the
+           backward bit-equal to the plain version
   serve    the ensemble-eval path at full width (cfg/darknet_dynamic.cfg +
            cfg/reweighting_net.cfg at 416x416, the tracked trained checkpoint,
            batch 16, top_k 256) on images made from the seed: class codes from
@@ -25,7 +29,19 @@ phases, each printing one JSON line:
            paint (flat background, noisy background), for 20 and 15 classes:
            how far the checkpoint's output is from overflowing the buffer
 
-Then the card's name and power limit, one JSON object describing every kernel
+  train    the episodic meta-training step at full width (the same cfgs and
+           checkpoint, 416x416, the cfg's batch 64, a 15-way support set, one
+           replica group, lr and weight decay as the CLI derives them) on
+           episodes painted from the seed, in float32 without TF32 and in
+           bfloat16: the first step's loss and gradient norms against the same
+           step through the plain `bn_sums`, a `remat` step, 2 warm-up + 5
+           timed steps with 29 forward and 29 backward `bn_sums` launches
+           each, running statistics that moved, peak memory, images/s and the
+           share of a step spent in the `bn_sums` kernels
+
+`--phases` runs a subset (for finding faults); the result line is printed
+only when every phase ran. Then the card's name and power limit, one JSON
+object describing every kernel
 (`{"kernels": [...]}`), and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -45,6 +61,8 @@ import time
 import numpy as np
 import torch
 
+from fewshot_detection_tpu_torch.cli.train_meta_cli import make_episode_batch, schedule_from_cfg
+from fewshot_detection_tpu_torch.config import parse_cfg
 from fewshot_detection_tpu_torch.config.settings import VOC_CLASSES
 from fewshot_detection_tpu_torch.eval import valid
 from fewshot_detection_tpu_torch.eval.detector import MetaDetector
@@ -54,19 +72,45 @@ from fewshot_detection_tpu_torch.eval.device_pipeline import (
     _nms_and_rows,
     _rows_to_eval_boxes,
 )
-from fewshot_detection_tpu_torch.ops import nms_device
+from fewshot_detection_tpu_torch.models.convert import from_jax_params, require_grads
+from fewshot_detection_tpu_torch.models.meta import MetaSpec, init_meta_params
+from fewshot_detection_tpu_torch.models.spec import build_spec
+from fewshot_detection_tpu_torch.models.weights_io import load_weights_bf16_gz
+from fewshot_detection_tpu_torch.ops import _build, bn_sums as bn_mod, layers, nms_device
+from fewshot_detection_tpu_torch.ops.bn_sums import (
+    bn_sums,
+    bn_sums_backward,
+    bn_sums_backward_reference,
+    bn_sums_reference,
+)
 from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes_v2, nms
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
+from fewshot_detection_tpu_torch.train import MetaTrainer, init_momentum
+from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path
+from fewshot_detection_tpu_torch.utils import format_loss_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DARKNET_CFG = os.path.join(REPO, "cfg", "darknet_dynamic.cfg")
 LEARNET_CFG = os.path.join(REPO, "cfg", "reweighting_net.cfg")
 WEIGHTS = os.path.join(REPO, "artifacts", "flagship_base_novel0", "base_latest.weights.bf16.gz")
 SEEN = 59220
+DEVICE = "cuda"  # every tensor the script makes goes here
 BATCH = 16
 TOP_K = 256
 SUPPORTS_PER_CLASS = 3
 NMS_THRESH = valid.NMS_THRESH
+# the train phase: the cfg's batch, a 15-way support set, the data cfg's neg=1
+TRAIN_N_CLS = 15
+TRAIN_NEG_RATIO = 1
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 5
+# training BatchNorms of the two cfgs: 22 in the detector, 7 in the learnet
+BN_LAYERS = 29
+# |sum - float64 sum| <= SUM_TOL * sum|x| per channel: float32 rounds each add
+# to 2^-24 relative, and the longest chain of adds in the kernel (a thread's
+# rows / 4, then 8 warps, then the blocks / 8, then 8) and in PyTorch's own
+# reduction stays under a few hundred, of which the errors partly cancel
+SUM_TOL = 2e-6
 
 # published peaks of one H100 SXM: device memory rate, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -165,9 +209,10 @@ class MemorySupportSet:
             yield self.metax[s:e], self.masks[s:e], self.clsids[s:e]
 
 
-def make_support_set(rng, classes, per_class: int, size: int) -> MemorySupportSet:
+def make_support_set(rng, classes, per_class: int, size: int,
+                     background: str = "flat") -> MemorySupportSet:
     n = len(classes) * per_class
-    metax, boxes = paint_images(rng, n, size)
+    metax, boxes = paint_images(rng, n, size, background)
     masks = np.zeros((n, size, size, 1), np.float32)
     for i, (cx, cy, bw, bh) in enumerate(boxes):
         x1, x2 = int(max(0, round((cx - bw / 2) * size))), int(min(size, round((cx + bw / 2) * size)))
@@ -231,12 +276,17 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Both sources are started before either is waited on."""
     t0 = time.perf_counter()
-    lib = nms_device.build_nms_library(verbose=True)
+    names = ("nms", "bn_sums")
+    handles = [_build.start_build(n, verbose=True) for n in names]
+    for h in handles:
+        _build.finish_build(h)
     nms_device._kernel()
-    emit("build", source=os.path.relpath(nms_device.NMS_SOURCE, REPO),
-         library=os.path.relpath(lib, REPO), flags=list(nms_device.NVCC_FLAGS),
-         seconds=round(time.perf_counter() - t0, 3))
+    bn_mod._kernels()
+    emit("build", sources=[os.path.relpath(_build.source_path(n), REPO) for n in names],
+         libraries=[os.path.relpath(_build.library_path(n), REPO) for n in names],
+         flags=list(_build.NVCC_FLAGS), seconds=round(time.perf_counter() - t0, 3))
 
 
 def pairwise_work(dsel: torch.Tensor, keep: torch.Tensor) -> tuple[int, int, int]:
@@ -303,6 +353,131 @@ def phase_kernels(seed: int) -> int:
     check(any(c["case"] == "adversarial" and 0 < c["kept"] < c["valid"] for c in results),
           "the adversarial set suppressed nothing")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# bn_sums: the kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def bn_bound_ms(m: int, c: int, itemsize: int, backward: bool) -> float:
+    """Bytes moved once over the memory rate: the forward reads x and writes
+    2*C floats, the backward reads x, dsum, dsq and writes dx. The arithmetic
+    (3 operations a value) is far below the float32 rate, so bytes bind."""
+    nbytes = m * c * itemsize * (2 if backward else 1) + 2 * c * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def make_activation(seed: int, m: int, c: int, dtype) -> torch.Tensor:
+    """(m, c) values like a conv output before BN: per-channel offset and
+    scale, made on the card from the seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((m, c), generator=g, device=DEVICE, dtype=torch.float32)
+    x = x * torch.linspace(0.5, 2.0, c, device=DEVICE) + torch.linspace(-1.0, 1.0, c, device=DEVICE)
+    return x.to(dtype)
+
+
+def compare_bn_sums(x: torch.Tensor, seed: int) -> dict:
+    """Kernel and plain version on one input: the sums against a float64 sum
+    within SUM_TOL * sum|x|, two launches bit-equal, the backward bit-equal
+    to the plain backward. Raises on any failure."""
+    c = x.shape[-1]
+    copies0 = bn_sums.layout_copies
+    s, q = bn_sums(x)
+    s2, q2 = bn_sums(x)
+    torch.cuda.synchronize()
+    check(torch.equal(s, s2) and torch.equal(q, q2),
+          f"bn_sums: two launches differ at {tuple(x.shape)} {x.dtype}")
+    ps, pq = bn_sums_reference(x)
+    xd = x.reshape(-1, c).double()
+    s64, q64 = xd.sum(0), (xd * xd).sum(0)
+    room_s, room_q = SUM_TOL * xd.abs().sum(0), SUM_TOL * q64
+    del xd
+    rel = {}
+    for name, (gs, gq) in (("kernel", (s, q)), ("plain", (ps, pq))):
+        es, eq = (gs.double() - s64).abs(), (gq.double() - q64).abs()
+        check(bool((es <= room_s).all()) and bool((eq <= room_q).all()),
+              f"bn_sums {name} sums off their bound at {tuple(x.shape)} {x.dtype}")
+        rel[name] = float(torch.maximum(es / room_s.clamp(min=1e-300),
+                                        eq / room_q.clamp(min=1e-300)).max()) * SUM_TOL
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    dsum = torch.randn(c, generator=g, device=DEVICE)
+    dsq = torch.randn(c, generator=g, device=DEVICE)
+    xc = x.contiguous()
+    worst_dx = 0.0
+    for ds, dq in ((dsum, dsq), (None, dsq), (dsum, None)):
+        dx = bn_sums_backward(xc, ds, dq)
+        want = bn_sums_backward_reference(xc, ds, dq)
+        torch.cuda.synchronize()
+        check(dx.dtype == x.dtype and dx.shape == x.shape, "bn_sums backward shape or dtype")
+        diff = float((dx.float() - want.float()).abs().max())
+        worst_dx = max(worst_dx, diff)
+        if x.dtype == torch.float32:
+            check(torch.equal(dx, want), f"bn_sums backward differs by {diff} at {tuple(x.shape)}")
+        else:  # within one bfloat16 rounding step (2^-8 relative)
+            check(bool(((dx.float() - want.float()).abs() <= want.float().abs() * 2.0 ** -8).all()),
+                  f"bn_sums backward off by {diff} at {tuple(x.shape)} bfloat16")
+    return {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+            "contiguous": x.is_contiguous(), "layout_copies": bn_sums.layout_copies - copies0,
+            "sum_abs_err": float((s.double() - s64).abs().max()),
+            "sumsq_abs_err": float((q.double() - q64).abs().max()),
+            "kernel_err_over_sum_abs": rel["kernel"], "plain_err_over_sum_abs": rel["plain"],
+            "tolerance_over_sum_abs": SUM_TOL, "backward_max_abs_err": worst_dx}
+
+
+def time_bn_sums(x: torch.Tensor) -> dict:
+    """Kernel, plain version and the one-call library yardstick, forward and
+    backward, on x (larger than the L2 cache at the main path's top shape)."""
+    m, c = x.shape
+    dsum = torch.randn(c, device=DEVICE)
+    dsq = torch.randn(c, device=DEVICE)
+    return {
+        "fwd_ms": cuda_ms(lambda: bn_mod._launch_forward(x), 20),
+        "fwd_plain_ms": cuda_ms(lambda: bn_sums_reference(x), 5),
+        "fwd_library_ms": cuda_ms(lambda: torch.var_mean(x, dim=0, correction=0), 10),
+        "fwd_bound_ms": bn_bound_ms(m, c, x.element_size(), False),
+        "bwd_ms": cuda_ms(lambda: bn_mod._launch_backward(x, dsum, dsq), 20),
+        "bwd_plain_ms": cuda_ms(lambda: bn_sums_backward_reference(x, dsum, dsq), 5),
+        "bwd_library_ms": cuda_ms(lambda: torch.addcmul(dsum.to(x.dtype), x, (2 * dsq).to(x.dtype)), 10),
+        "bwd_bound_ms": bn_bound_ms(m, c, x.element_size(), True),
+    }
+
+
+# the main path's extreme shapes at batch 64 / 15-way / 416 px, then awkward ones
+BN_MAIN_SHAPES = [(64 * 416 * 416, 32), (64 * 13 * 13, 1024), (15 * 6 * 6, 1024)]
+BN_AWKWARD_SHAPES = [(1, 1), (1000003, 30), (7, 1280), (4099, 3), (50000, 48)]
+
+
+def phase_bn_kernels(seed: int) -> dict:
+    """Returns what the kernels line needs: the worst errors and the times at
+    the main path's shapes."""
+    cases, times = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (m, c) in enumerate(BN_MAIN_SHAPES + BN_AWKWARD_SHAPES):
+            x = make_activation(seed + i, m, c, dtype)
+            res = compare_bn_sums(x, seed + i)
+            check(res["layout_copies"] == 0, "a contiguous input was copied")
+            if (m, c) in BN_MAIN_SHAPES:  # the smaller two fit the L2 cache, as behind a conv
+                times.setdefault(name, {})[f"{m}x{c}"] = time_bn_sums(x)
+            cases.append(res)
+            del x
+        # a view that is not row-major: the wrapper copies it, and counts it
+        wide = make_activation(seed + 100, 3001, 96, dtype)
+        res = compare_bn_sums(wide[:, 16:80], seed + 100)
+        check(res["layout_copies"] == 2 and not res["contiguous"],
+              f"the non-contiguous view cost {res['layout_copies']} counted copies, not 2")
+        cases.append(res)
+        # a 4-D NHWC activation, through autograd: d/dx of sum(a*s) + sum(b*q)
+        x4 = make_activation(seed + 101, 2 * 13 * 13, 64, dtype).reshape(2, 13, 13, 64)
+        x4.requires_grad_(True)
+        a, b = torch.randn(64, device=DEVICE), torch.randn(64, device=DEVICE)
+        s, q = bn_sums(x4)
+        (dx,) = torch.autograd.grad((a * s).sum() + (b * q).sum(), x4)
+        want = bn_sums_backward_reference(x4.detach(), a, b)
+        check(torch.equal(dx, want), "bn_sums through autograd differs from the plain backward")
+    emit("kernels", name="bn_sums", tolerance_over_sum_abs=SUM_TOL, cases=cases, times=times)
+    return {"cases": cases, "times": times}
 
 
 def sweep(m, detset, codes, n_cls, classes, outdir, tag):
@@ -451,7 +626,237 @@ def phase_serve(seed: int, n_batches: int, outdir: str) -> dict:
     return {"rows": captured, "launches": main_launches}
 
 
-def kernels_line(launches: int, worst: int, rows) -> dict:
+# ---------------------------------------------------------------------------
+# train: the episodic meta-training step at full width
+# ---------------------------------------------------------------------------
+
+
+def make_episode(seed: int, batch_size: int, n_cls: int, size: int, dtype_name: str) -> dict:
+    """One episode painted from the seed, through the CLI's own batch maker:
+    `batch_size` detection images whose first rectangle is the object of
+    class i % n_cls, and one support image + box mask per class. The
+    backgrounds are noisy: on flat ones most channels of the trained
+    checkpoint are nearly constant, their variance is the small difference
+    of two large numbers, and gradients then follow the last bit of the
+    sums rather than the data."""
+    rng = np.random.default_rng(seed)
+    imgs, first = paint_images(rng, batch_size, size, "noise")
+    labels = np.zeros((batch_size, n_cls, 50, 5), np.float32)
+    for i, box in enumerate(first):
+        labels[i, i % n_cls, 0] = (i % n_cls, *box)
+    support = make_support_set(rng, range(n_cls), 1, size, "noise")
+    return make_episode_batch(
+        imgs, labels.reshape(batch_size, n_cls, 250), support.metax, support.masks, 1,
+        TRAIN_NEG_RATIO, np.random.RandomState(seed), dtype=dtype_name)
+
+
+def load_train_state(spec):
+    """(parameter tree on the card with gradients required, header)."""
+    init = init_meta_params(spec, 0)
+    (dp, lp), header = load_weights_bf16_gz(
+        WEIGHTS, [spec.darknet, spec.learnet], [init["darknet"], init["learnet"]])
+    params = require_grads({"darknet": from_jax_params(spec.darknet, dp, DEVICE),
+                            "learnet": from_jax_params(spec.learnet, lp, DEVICE)})
+    return params, header
+
+
+def grad_norms(grads) -> dict:
+    """L2 norms of a few gradient leaves spread over both networks, and of
+    the whole tree."""
+    leaves = dict(tree_leaves_with_path(grads))
+    picks = {"darknet0.w": ("darknet", 0, "w"), "darknet0.gamma": ("darknet", 0, "bn", "gamma"),
+             "darknet29.w": ("darknet", 29, "w"), "darknet29.beta": ("darknet", 29, "bn", "beta"),
+             "head.w": ("darknet", 31, "w"), "learnet0.w": ("learnet", 0, "w"),
+             "learnet12.w": ("learnet", 12, "w")}
+    out = {k: float(leaves[p].float().norm()) for k, p in picks.items()}
+    out["all"] = float(torch.sqrt(sum(g.float().square().sum() for g in leaves.values())))
+    return out
+
+
+def bn_sums_float64(x: torch.Tensor):
+    """The sums taken in float64 and rounded once to float32."""
+    xd = x.double()
+    axes = tuple(range(x.ndim - 1))
+    return xd.sum(dim=axes).float(), (xd * xd).sum(dim=axes).float()
+
+
+def bn_stats_snapshot(params) -> dict:
+    return {p: t.clone() for p, t in tree_leaves_with_path(params) if p[-1] in ("mean", "var")}
+
+
+class KernelClock:
+    """Times every bn_sums launch of a stretch of work with CUDA events, by
+    standing in for the wrapper's two launch functions."""
+
+    def __init__(self):
+        self.events = []
+        self._fwd, self._bwd = bn_mod._launch_forward, bn_mod._launch_backward
+
+    def _timed(self, fn):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            self.events.append((a, b))
+            return out
+        return run
+
+    def __enter__(self):
+        bn_mod._launch_forward = self._timed(self._fwd)
+        bn_mod._launch_backward = self._timed(self._bwd)
+        return self
+
+    def __exit__(self, *exc):
+        bn_mod._launch_forward, bn_mod._launch_backward = self._fwd, self._bwd
+
+    def total_ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dict:
+    name = str(dtype).split(".")[-1]
+    params, header = load_train_state(spec)
+    check(header.seen == seen0, f"checkpoint header says seen={header.seen}")
+    batch_size = sched.batch_size
+    kw = dict(momentum=sched.momentum, weight_decay=sched.weight_decay, metain_type=2,
+              image_dtype=dtype, warmup_seen=12800, device=DEVICE)
+    trainer = MetaTrainer(spec, **kw)
+    episodes = [make_episode(seed + i, batch_size, TRAIN_N_CLS, 416, name)
+                for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)]
+    check(tuple(episodes[0]["x"].shape) == (1, batch_size, 416, 416, 3), "episode images shape")
+    check(tuple(episodes[0]["metax"].shape) == (1, TRAIN_N_CLS, 416, 416, 3), "support shape")
+
+    # -- the first step's loss and gradients: kernels, plain versions, remat
+    seen = seen0 + batch_size
+    bn_sums.launches = bn_sums.backward_launches = 0
+    loss_k, grads_k, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
+    torch.cuda.synchronize()
+    check((bn_sums.launches, bn_sums.backward_launches) == (BN_LAYERS, BN_LAYERS),
+          f"one step launched {bn_sums.launches} + {bn_sums.backward_launches} bn_sums kernels")
+    norms_k = grad_norms(grads_k)
+    del grads_k
+    norms, loss = {"kernel": norms_k}, {"kernel": float(loss_k)}
+    # the same step through the plain version, and through sums taken in
+    # float64 (both differentiated by autograd): the yardstick for how far
+    # two right float32 answers lie apart at this depth
+    for tag, fn in (("plain", bn_sums_reference), ("float64", bn_sums_float64)):
+        layers.bn_sums = fn
+        loss_v, grads_v, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
+        layers.bn_sums = bn_sums
+        norms[tag], loss[tag] = grad_norms(grads_v), float(loss_v)
+        del grads_v
+    check(bn_sums.launches == BN_LAYERS, "a plain step launched the kernel")
+    bn_sums.launches = bn_sums.backward_launches = 0
+    loss_v, grads_v, _, _ = MetaTrainer(spec, remat=True, **kw).loss_and_grads(
+        params, episodes[0], seen)
+    norms["remat"], loss["remat"] = grad_norms(grads_v), float(loss_v)
+    del grads_v
+    remat_launches = (bn_sums.launches, bn_sums.backward_launches)
+    check(remat_launches == (BN_LAYERS, BN_LAYERS),
+          f"the remat step launched {remat_launches} bn_sums kernels")
+    # Kernel and plain version add in another order, so a layer's statistics
+    # differ in the last bit; every BN backward below amplifies that, most in
+    # the first layers, whose parameter gradients are sums of millions of
+    # cancelling terms. In bfloat16 a last-bit change of a statistic can move a
+    # whole channel's scale by one rounding step (2^-8). So: the loss against
+    # the plain version; each gradient norm of kernel, plain version and remat
+    # against the float64-sums step within the bound, and kernel against plain
+    # version within twice the bound.
+    tol = ({"loss": 1e-5, "all": 1e-4, "leaf": 1e-2} if dtype == torch.float32
+           else {"loss": 2e-2, "all": 1e-1, "leaf": 2e-1})
+    first_step = {"loss": loss, "grad_norms": norms, "rel_tolerance": tol,
+                  "remat_launches": list(remat_launches)}
+    emit("train_first_step", dtype=name, **first_step)
+    check(np.isfinite(loss["kernel"])
+          and abs(loss["kernel"] - loss["plain"]) <= tol["loss"] * abs(loss["plain"]),
+          f"first step's loss {loss['kernel']} against {loss['plain']} through the plain version")
+    check(abs(loss["kernel"] - loss["remat"]) <= 1e-6 * abs(loss["kernel"]),
+          f"remat loss {loss['remat']} against {loss['kernel']}")
+    for key, exact in norms["float64"].items():
+        room = tol["all" if key == "all" else "leaf"] * exact
+        for tag in ("kernel", "plain", "remat"):
+            check(abs(norms[tag][key] - exact) <= room,
+                  f"gradient norm {key}: {tag} {norms[tag][key]} against {exact} (float64 sums)")
+        check(abs(norms["kernel"][key] - norms["plain"][key]) <= 2 * room,
+              f"gradient norm {key}: {norms['kernel'][key]} against {norms['plain'][key]} (plain)")
+
+    # -- the main path: warm-up and timed steps, counts read right after
+    before = bn_stats_snapshot(params)
+    mom = init_momentum(params)
+    processed = seen0 // batch_size
+    lines, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    seen = seen0
+    for i, ep in enumerate(episodes):
+        if i == TRAIN_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        seen += batch_size
+        params, mom, metrics = trainer.step(params, mom, ep, seen=seen, lr=sched.lr(processed + i))
+        lines.append(format_loss_line(seen, metrics))  # the step's one host sync
+        losses.append(float(lines[-1].rsplit(" ", 1)[-1]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(episodes)
+    check(launches[:2] == (BN_LAYERS * steps, BN_LAYERS * steps),
+          f"{steps} steps launched {launches[0]} forward and {launches[1]} backward bn_sums kernels")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    after = bn_stats_snapshot(params)
+    check(len(before) == 2 * BN_LAYERS, f"{len(before)} running-statistics leaves")
+    still = [p for p in before if torch.equal(before[p], after[p])]
+    check(not still, f"running statistics did not move: {still}")
+    check(all(bool(torch.isfinite(t).all()) for _, t in tree_leaves_with_path(params)),
+          "a parameter is not finite after the steps")
+
+    # -- one more step with every bn_sums launch timed (not counted above)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with KernelClock() as clock:
+        a.record()
+        trainer.step(params, mom, episodes[-1], seen=seen + batch_size, lr=sched.lr(processed + steps))
+        b.record()
+        torch.cuda.synchronize()
+    step_ms, kernels_ms = a.elapsed_time(b), clock.total_ms()
+    check(len(clock.events) == 2 * BN_LAYERS, f"{len(clock.events)} timed launches in one step")
+
+    return {"dtype": name, "batch": batch_size, "n_cls": TRAIN_N_CLS, "size": 416, "groups": 1,
+            "seen_start": seen0, "lr_first_step": sched.lr(processed),
+            "weight_decay": sched.weight_decay, "momentum": sched.momentum,
+            "first_step": first_step,
+            "steps": steps, "timed_steps": TRAIN_TIMED_STEPS, "losses": losses,
+            "first_line": lines[0], "last_line": lines[-1],
+            "bn_fwd_launches": launches[0], "bn_bwd_launches": launches[1],
+            "launches_per_step": [launches[0] // steps, launches[1] // steps],
+            "layout_copies": launches[2], "bn_stats_moved": len(before),
+            "peak_memory_bytes": peak, "seconds_timed": seconds,
+            "images_per_s": TRAIN_TIMED_STEPS * batch_size / seconds,
+            "step_ms_events": step_ms, "bn_kernels_ms_in_step": kernels_ms,
+            "bn_kernels_share": kernels_ms / step_ms}
+
+
+def phase_train(seed: int) -> dict:
+    """Returns the bn_sums launches of the main path, summed over variants."""
+    dblocks, lblocks = parse_cfg(DARKNET_CFG), parse_cfg(LEARNET_CFG)
+    spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
+    sched = schedule_from_cfg(dblocks[0], TRAIN_NEG_RATIO, TRAIN_N_CLS)
+    check(sched.batch_size == 64, f"the cfg's batch is {sched.batch_size}")
+    total = {"fwd": 0, "bwd": 0, "layout_copies": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        report = train_variant(spec, sched, SEEN, dtype, seed)
+        emit("train", **report)
+        total["fwd"] += report["bn_fwd_launches"]
+        total["bwd"] += report["bn_bwd_launches"]
+        total["layout_copies"] += report["layout_copies"]
+        torch.cuda.empty_cache()
+    return total
+
+
+def kernels_line(launches: int, worst: int, rows, bn: dict, train: dict) -> dict:
     """The summary of every kernel of the port, timed on the candidate rows
     that the main path's first batch produced (20 classes, float32). The rows
     are in L2 when the kernel starts, as they are behind `_decode_rank`."""
@@ -480,14 +885,55 @@ def kernels_line(launches: int, worst: int, rows) -> dict:
         "bytes_bound_ms": res["bytes_bound_ms"],
         "flops_bound_ms": res["flops_bound_ms"],
         "chain_bound_ms": res["chain_bound_ms"],
-    }]}
+    }, *bn_kernel_entries(bn, train)]}
+
+
+def bn_kernel_entries(bn: dict, train: dict) -> list:
+    """`bn_sums_fwd` and `bn_sums_bwd`, timed at the main path's largest
+    shape in float32 (the bfloat16 times ride along), with the worst error
+    over every compared case."""
+    shape = list(BN_MAIN_SHAPES[0])
+    key = f"{shape[0]}x{shape[1]}"
+    f32, b16 = bn["times"]["float32"][key], bn["times"]["bfloat16"][key]
+    entries = []
+    for way, name, line, err_key, lib in (
+            ("fwd", "bn_sums_fwd", 36, "sum_abs_err", "torch.var_mean(x, dim=0, correction=0)"),
+            ("bwd", "bn_sums_bwd", 144, "backward_max_abs_err", "torch.addcmul(dsum, x, 2*dsq)")):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "fewshot_detection_tpu_torch/csrc/bn_sums.cu",
+            "replaces": f"fewshot_detection_tpu/ops/bn_pallas.py:{line}",
+            "launches": train[way],
+            "max_abs_err": max(c[err_key] for c in bn["cases"]),
+            "ms": f32[f"{way}_ms"],
+            "plain_ms": f32[f"{way}_plain_ms"],
+            "bound_ms": f32[f"{way}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": f32[f"{way}_library_ms"],
+            "library_call": lib,
+            "shape": shape,
+            "dtype": "float32",
+            "bfloat16": {k.split("_", 1)[1]: v for k, v in b16.items() if k.startswith(way)},
+            "max_err_over_sum_abs": max(c["kernel_err_over_sum_abs"] for c in bn["cases"]),
+            "layout_copies": train["layout_copies"],
+        })
+    return entries
+
+
+PHASES = ("device", "build", "kernels", "serve", "train")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=3, help="detection batches of 16 per sweep")
+    ap.add_argument("--batches", type=int, default=2, help="detection batches of 16 per sweep")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of phases; no result line unless all run")
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phase in {phases}")
 
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -497,15 +943,24 @@ def main() -> int:
     valid.set_float32_precision(tf32=False)
 
     smi = phase_device()
-    phase_build()
-    worst = phase_kernels(args.seed)
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        worst = phase_kernels(args.seed)
+        bn = phase_bn_kernels(args.seed)
+    if "serve" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
+            served = phase_serve(args.seed, args.batches, outdir)
+        check(served["launches"] > 0, "the main path never launched the NMS kernel")
+    if "train" in phases:
+        trained = phase_train(args.seed)
+        check(trained["fwd"] > 0 and trained["bwd"] > 0,
+              "the training path never launched the bn_sums kernels")
+    if set(phases) != set(PHASES):
+        print(f"ran only {phases}: no result line", file=sys.stderr)
+        return 2
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
-        served = phase_serve(args.seed, args.batches, outdir)
-    launches = served["launches"]
-    check(launches > 0, "the main path never launched the NMS kernel")
-
-    line = kernels_line(launches, worst, served["rows"])
+    line = kernels_line(served["launches"], worst, served["rows"], bn, trained)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

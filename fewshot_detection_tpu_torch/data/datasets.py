@@ -1,16 +1,22 @@
-"""Detection + support (meta) datasets, eval mode.
+"""Detection + support (meta) datasets.
 
-Pure-python samplers feeding the sweeps; no torch DataLoader. Reference
+Own copy of the JAX package's `data/datasets.py` (numpy/PIL code, no JAX),
+without the native C++ loader paths, which are not ported yet. Pure-python
+samplers feeding the train/eval steps; no torch DataLoader. Reference
 behavior being reproduced (file:line in the reference):
-  * listDataset — label-path derivation (dataset.py:265-271), plain resize
-    to the network size when not training
-  * MetaDataset in ensemble mode — every support image of every class
-    enumerated once, 4-channel (RGB+mask) input synthesis from one labeled
-    box (dataset.py:378-403), images whose boxes give an empty mask dropped
-    (dataset.py:447-457), per-class labels_1c paths (dataset.py:472-488)
+  * listDataset — base-class filtering, multi-scale schedule keyed to the
+    `seen` counter (dataset.py:223-245), label-path derivation
+    (dataset.py:265-271)
+  * MetaDataset — per-class support sampling interleaved so each contiguous
+    n_cls block holds one sample per class (dataset.py:311-348), 4-channel
+    (RGB+mask) input synthesis from one labeled box (dataset.py:378-403),
+    resampling when a box yields an empty mask (dataset.py:423-445),
+    ensemble enumeration dropping images whose boxes give empty masks
+    (dataset.py:333-368, 447-457), per-class labels_1c paths
+    (dataset.py:472-488)
 
-Training mode (augmentation, the multi-scale schedule, random support
-sampling) is not part of this module yet. PIL is imported where an image
+The same `random.Random` stream is consumed in the same order as in the JAX
+package, so one seed gives the same episodes. PIL is imported where an image
 file is opened.
 """
 
@@ -21,8 +27,77 @@ import random as _random
 
 import numpy as np
 
-from ..config.settings import MAX_BOXES, Settings
+from ..config.settings import Settings
 from ..utils.imaging import get_image_size
+from .augment import (
+    augment_image,
+    fill_truth_detection,
+    fill_truth_detection_meta,
+    image_to_array,
+    load_label_boxes,
+)
+
+JITTER = 0.2
+HUE = 0.1
+SATURATION = 1.5
+EXPOSURE = 1.5
+
+
+class DecodedCache:
+    """Decoded-image RAM cache: path -> (H, W, 3) uint8, fill-to-budget.
+
+    The reference containers assumed torch num_workers could hide decode
+    cost (train_meta.py:173-183); on a host with few cores re-decoding the
+    same images through libjpeg/libpng every epoch dominates training. Most
+    train sets fit in RAM decoded, so pay the decode once and run only the
+    augment tail per epoch. No eviction: entries land until the byte budget
+    (FSD_RAM_CACHE_MB, default 4096) is full, then misses decode from disk
+    as before. Disable with FSD_RAM_CACHE=0.
+    """
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max_bytes
+        self.bytes = 0
+        self.map: dict[str, np.ndarray] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, path: str) -> np.ndarray | None:
+        """Cached decode; None when over budget (caller decodes from disk)."""
+        from PIL import Image
+
+        arr = self.map.get(path)
+        if arr is not None:
+            self.hits += 1
+            return arr
+        if self.bytes >= self.max_bytes:
+            self.misses += 1
+            return None
+        try:
+            with Image.open(path) as im:
+                arr = np.asarray(im.convert("RGB"), np.uint8)
+        except Exception:
+            self.misses += 1
+            return None
+        self.map[path] = arr
+        self.bytes += arr.nbytes
+        self.misses += 1
+        return arr
+
+
+_ram_cache: DecodedCache | None = None
+_ram_cache_init = False
+
+
+def ram_cache() -> DecodedCache | None:
+    """Process-wide decoded-image cache (FSD_RAM_CACHE=1, the default)."""
+    global _ram_cache, _ram_cache_init
+    if not _ram_cache_init:
+        _ram_cache_init = True
+        if os.environ.get("FSD_RAM_CACHE", "1") == "1":
+            mb = int(os.environ.get("FSD_RAM_CACHE_MB", "4096"))
+            _ram_cache = DecodedCache(mb * (1 << 20))
+    return _ram_cache
 
 
 def topath(p: str) -> str:
@@ -66,108 +141,49 @@ def get_labpath_1c(imgpath: str, cls_name: str, data: str = "voc") -> str:
     raise ValueError(f"cannot derive labels_1c path for {imgpath!r}")
 
 
-# ---------------------------------------------------------------------------
-# label transforms (reference image.py:90-231), identity crop in eval mode
-# ---------------------------------------------------------------------------
-
-
-def _clamp_box(row):
-    """Corner clamp to [0, 0.999] and recompose one [cls, cx, cy, w, h] row;
-    None when degenerate (< 0.001 wide or high)."""
-    cls_id, cx, cy, w, h = row
-    x1 = min(0.999, max(0, cx - w / 2))
-    y1 = min(0.999, max(0, cy - h / 2))
-    x2 = min(0.999, max(0, cx + w / 2))
-    y2 = min(0.999, max(0, cy + h / 2))
-    w = x2 - x1
-    h = y2 - y1
-    if w < 0.001 or h < 0.001:
-        return None
-    return [cls_id, (x1 + x2) / 2, (y1 + y2) / 2, w, h]
-
-
-def _read_label_file(labpath: str) -> np.ndarray:
-    if not os.path.exists(labpath) or not os.path.getsize(labpath):
-        return np.zeros((0, 5))
-    bs = np.loadtxt(labpath)
-    if bs is None or bs.size == 0:
-        return np.zeros((0, 5))
-    return np.reshape(bs, (-1, 5))
-
-
-def fill_truth_detection(labpath: str, base_ids: tuple[int, ...]) -> np.ndarray:
-    """(50*5,) flat label; boxes outside the base classes are dropped."""
-    label = np.zeros((MAX_BOXES, 5), np.float32)
-    cc = 0
-    base = set(base_ids)
-    for row in _read_label_file(labpath):
-        if int(row[0]) not in base:
-            continue
-        out = _clamp_box(row)
-        if out is None:
-            continue
-        label[cc] = out
-        cc += 1
-        if cc >= MAX_BOXES:
-            break
-    return label.reshape(-1)
-
-
-def fill_truth_detection_meta(labpath: str, base_ids: tuple[int, ...]) -> np.ndarray:
-    """(n_cls, 50*5) labels binned per base class; the class field holds the
-    POSITION in the base list (image.py:182-187)."""
-    n_cls = len(base_ids)
-    label = np.zeros((n_cls, MAX_BOXES, 5), np.float32)
-    ccs = [0] * n_cls
-    pos = {cid: i for i, cid in enumerate(base_ids)}
-    for row in _read_label_file(labpath):
-        clsid = int(row[0])
-        if clsid not in pos:
-            continue
-        out = _clamp_box(row)
-        if out is None:
-            continue
-        ind = pos[clsid]
-        if ccs[ind] >= MAX_BOXES:
-            continue
-        out[0] = ind
-        label[ind][ccs[ind]] = out
-        ccs[ind] += 1
-        if sum(ccs) >= MAX_BOXES:
-            break
-    return label.reshape(n_cls, -1)
-
-
-def load_label_boxes(labpath: str) -> list[np.ndarray]:
-    """[cx, cy, w, h] rows for support images (image.py:195-231); no class
-    filtering (the file is already per-class)."""
-    out = []
-    for row in _read_label_file(labpath):
-        r = _clamp_box(row)
-        if r is None:
-            continue
-        out.append(np.asarray(r[1:], np.float32))
-        if len(out) >= MAX_BOXES:
-            break
-    return out
-
-
-def _open_resized(imgpath: str, shape: tuple[int, int]):
+def _open_rgb(imgpath: str):
+    """The decoded image as a PIL RGB image, from the RAM cache when it
+    holds (or can take) it."""
     from PIL import Image
 
-    return Image.open(imgpath).convert("RGB").resize(shape)
+    cache = ram_cache()
+    raw = cache.get(imgpath) if cache is not None else None
+    if raw is not None:
+        return Image.fromarray(raw)
+    return Image.open(imgpath).convert("RGB")
 
 
-def image_to_array(img) -> np.ndarray:
-    """PIL RGB -> float32 HWC in [0, 1]."""
-    return np.asarray(img, np.uint8).astype(np.float32) / 255.0
+def multiscale_size(seen: int, rng: _random.Random, multiscale: bool) -> int:
+    """Pick the square input size for the next 64-sample block
+    (dataset.py:223-245): fixed 416 early, widening range with progress."""
+    if not multiscale:
+        return 416
+    block = 4000 * 64
+    if seen < block:
+        return 13 * 32
+    if seen < 2 * block:
+        return (rng.randint(0, 3) + 13) * 32
+    if seen < 3 * block:
+        return (rng.randint(0, 5) + 12) * 32
+    if seen < 4 * block:
+        return (rng.randint(0, 7) + 11) * 32
+    return (rng.randint(0, 9) + 10) * 32
+
+
+def _noaug(kind: str) -> bool:
+    """FSD_NOAUG=det|meta|all disables train-time augmentation for the
+    detection/query stream, the support stream, or both (plain resize, no
+    jitter/flip/HSV). Debug/ablation extension — the reference always
+    augments in train mode (image.py:52-87, dataset.py:418-421)."""
+    v = os.environ.get("FSD_NOAUG", "")
+    return v == "all" or v == kind
 
 
 class DetectionDataset:
-    """Detection-image sampler (listDataset equivalent), eval mode.
+    """Detection-image sampler (listDataset equivalent).
 
     Yields (image HWC float32 [0,1], label) where label is (50*5,) flat for
-    plain nets or (n_cls, 50*5) for the meta detector.
+    plain training or (n_cls, 50*5) for meta training.
     """
 
     def __init__(
@@ -178,13 +194,12 @@ class DetectionDataset:
         shape: tuple[int, int] | None = None,
         shuffle: bool = True,
         train: bool = False,
+        seen: int = 0,
         filter_valid: bool | None = None,
         rng: _random.Random | None = None,
     ):
         from .lists import image_is_valid, is_dict
 
-        if train:
-            raise NotImplementedError("the training-mode dataset is not ported yet")
         self.settings = settings
         self.rng = rng or _random.Random()
         if isinstance(lines, str):
@@ -199,8 +214,10 @@ class DetectionDataset:
             else:
                 with open(lines) as f:
                     lines = f.readlines()
+            if filter_valid is None:
+                filter_valid = train
             # remap only at the raw-read boundary: python lists arriving
-            # here are already remapped
+            # here (e.g. from load_lines/build_dataset) are already remapped
             lines = [topath(l) for l in lines]
         self.lines = [l.rstrip() for l in lines if l.strip()]
         if filter_valid:
@@ -209,8 +226,13 @@ class DetectionDataset:
             ]
         if shuffle:
             self.rng.shuffle(self.lines)
-        self.train = False
+        self.train = train
+        self.augment = train and not _noaug("det")
         self.shape = shape or (settings.width, settings.height)
+        self.seen = seen
+        # scale switches must land on batch boundaries; batches() sets this
+        # to the actual batch size (the reference hardcoded its 64)
+        self._rescale_every = 64
 
     def __len__(self) -> int:
         return len(self.lines)
@@ -219,29 +241,81 @@ class DetectionDataset:
         """(width, height) of the original image behind `lines[index]`."""
         return get_image_size(self.lines[index])
 
+    def _maybe_rescale(self, index: int) -> None:
+        s = self.settings
+        if (
+            self.train
+            and index % self._rescale_every == 0
+            and s.data != "coco"
+            and s.multiscale
+        ):
+            size = multiscale_size(self.seen, self.rng, s.multiscale)
+            self.shape = (size, size)
+
     def __getitem__(self, index: int):
         s = self.settings
         imgpath = self.lines[index]
-        arr = image_to_array(_open_resized(imgpath, self.shape))
+        self._maybe_rescale(index)
         labpath = get_labpath(imgpath)
+
+        img, flip, dx, dy, sx, sy = augment_image(
+            _open_rgb(imgpath), self.shape, self.rng,
+            jitter=JITTER, hue=HUE, saturation=SATURATION,
+            exposure=EXPOSURE, augment=self.augment,
+        )
+        arr = image_to_array(img)
         if s.metayolo:
-            label = fill_truth_detection_meta(labpath, s.base_ids)
+            label = fill_truth_detection_meta(
+                labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy, s.base_ids
+            )
         else:
-            label = fill_truth_detection(labpath, s.base_ids)
+            imgid = os.path.basename(imgpath).split(".")[0]
+            joint = s.yolo_joint and imgid in s.metaids
+            label = fill_truth_detection(
+                labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy, s.base_ids,
+                joint_keep=joint,
+            )
+        self.seen += 1
         return arr, label
 
-    def batches(self, batch_size: int, drop_last: bool = True):
-        """Yield stacked (images (B,H,W,3), labels) numpy batches."""
+    def batches(self, batch_size: int, drop_last: bool = True,
+                offset: int = 0, stride: int = 1):
+        """Yield stacked (images (B,H,W,3), labels) numpy batches. All images
+        in a batch share one scale: the multiscale schedule only switches at
+        batch boundaries.
+
+        `offset`/`stride` partition batches across multi-process loader
+        workers (worker w of W yields batches w, w+W, ...) — the reference's
+        torch num_workers semantics (train_meta.py:173-183). `seen` (and so
+        the multiscale width range) is pinned to the batch index so every
+        worker sees the sequential schedule."""
+        # the smallest multiple of the batch size >= the reference's
+        # 64-sample block
+        self._rescale_every = ((64 + batch_size - 1) // batch_size) * batch_size
         n = len(self.lines)
         end = n - (n % batch_size) if drop_last else n
-        for start in range(0, end, batch_size):
-            items = [self[i] for i in range(start, min(start + batch_size, n))]
-            yield np.stack([im for im, _ in items]), np.stack([lb for _, lb in items])
+        seen0 = self.seen
+        for start in range(offset * batch_size, end, stride * batch_size):
+            if stride > 1:
+                self.seen = seen0 + start
+            stop = min(start + batch_size, n)
+            imgs, labels = [], []
+            for i in range(start, stop):
+                im, lb = self[i]
+                imgs.append(im)
+                labels.append(lb)
+            yield np.stack(imgs), np.stack(labels)
 
 
 class MetaDataset:
-    """Per-class support sampler, ensemble mode: enumerates ALL support
-    images once, dropping images whose boxes give empty masks.
+    """Per-class support sampler.
+
+    train mode: an endless interleaved stream — each consecutive block of
+    n_cls samples holds one (RGB, mask) support pair per class, in class
+    order (so a contiguous per-device shard is a full class set,
+    dataset.py:339-348).
+    ensemble mode: enumerates ALL support images once, after a filter()
+    prepass dropping images whose boxes give empty masks.
     """
 
     def __init__(
@@ -252,48 +326,97 @@ class MetaDataset:
         train: bool = False,
         ensemble: bool = False,
         with_ids: bool = False,
+        num_replicas: int | None = None,
+        rng: _random.Random | None = None,
     ):
         from .lists import parse_dict_file
 
-        if train or not ensemble:
-            raise NotImplementedError(
-                "only MetaDataset(train=False, ensemble=True) is ported yet"
-            )
         self.settings = settings
+        self.rng = rng or _random.Random()
         s = settings
-        self.classes = s.base_classes if s.data == "coco" else s.classes
+        if train:
+            self.classes = s.base_classes
+            factor = 4 if s.data == "coco" else 1
+        else:
+            self.classes = s.base_classes if s.data == "coco" else s.classes
+            factor = 10
+
+        num_replicas = num_replicas or s.num_gpus
+        nbatch = factor * 500 * 64 * num_replicas // s.batch_size
 
         files = dict(parse_dict_file(metafiles))
         self.metalines: list[list[str]] = []
-        self.inds: list[tuple[int, int]] = []
+        metainds: list[list[tuple[int, int]]] = []
         for i, cls in enumerate(self.classes):
             with open(topath(files[cls])) as f:
                 lines = [topath(l.rstrip()) for l in f if l.strip()]
             self.metalines.append(lines)
-            self.inds.extend((i, j) for j in range(len(lines)))
-        self.meta_cnts = [len(l) for l in self.metalines]
+            if ensemble:
+                metainds.append([(i, j) for j in range(len(lines))])
+            else:
+                inds = [self.rng.randrange(len(lines)) for _ in range(nbatch)]
+                metainds.append([(i, j) for j in inds])
 
-        self.train = False
-        self.ensemble = True
+        if ensemble:
+            self.inds = [p for cls_list in metainds for p in cls_list]
+        else:
+            # interleave: class-major within each block of n_cls
+            self.inds = [p for group in zip(*metainds) for p in group]
+        self.meta_cnts = [len(l) for l in self.metalines]
+        if s.randmeta:
+            self.rng.shuffle(self.inds)
+
+        self.train = train
+        self.augment = train and not _noaug("meta")
+        self.ensemble = ensemble
         self.with_ids = with_ids
+        self.batch_size = len(self.classes) * num_replicas
         self.meta_shape = (s.meta_width, s.meta_height)
         self.mask_shape = (s.mask_width, s.mask_height)
+        # ensemble filtering is LAZY: the reference ran a full filter()
+        # decode prepass and then decoded every kept image AGAIN during the
+        # sweep (dataset.py:447-457). batches() streams with on-the-fly
+        # validity instead (one decode per image); the eager prepass only
+        # happens if someone indexes/len()s the dataset.
+        self._needs_filter = ensemble
+
+    def _ensure_filtered(self) -> None:
+        if self._needs_filter:
+            self.inds = self._filter(self.inds)
+            self._needs_filter = False
+
+    def __len__(self) -> int:
+        self._ensure_filtered()
+        return len(self.inds)
 
     # -- internals ---------------------------------------------------------
 
-    def _box_pixels(self, box: np.ndarray) -> tuple[int, int, int, int]:
-        w, h = self.mask_shape
-        x1 = int(max(0, round((box[0] - box[2] / 2) * w)))
-        y1 = int(max(0, round((box[1] - box[3] / 2) * h)))
-        x2 = int(min(w, round((box[0] + box[2] / 2) * w)))
-        y2 = int(min(h, round((box[1] + box[3] / 2) * h)))
-        return x1, y1, x2, y2
+    def _load_support(self, clsid: int, which: int | str):
+        """One augmented support image + its transformed per-class boxes.
+        Returns (PIL image, boxes)."""
+        if isinstance(which, int):
+            imgpath = self.metalines[clsid][which].rstrip()
+        else:
+            imgpath = which
+        labpath = get_labpath_1c(
+            imgpath, self.classes[clsid], self.settings.data
+        )
+        img, flip, dx, dy, sx, sy = augment_image(
+            _open_rgb(imgpath), self.meta_shape, self.rng,
+            jitter=JITTER, hue=HUE, saturation=SATURATION, exposure=EXPOSURE,
+            augment=self.augment,
+        )
+        boxes = load_label_boxes(labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy)
+        return img, boxes
 
     def _make_mask(self, box: np.ndarray) -> np.ndarray | None:
         """Binary object mask (H, W, 1) from one normalized box
         (dataset.py:378-398); None when it rounds to empty."""
         w, h = self.mask_shape
-        x1, y1, x2, y2 = self._box_pixels(box)
+        x1 = int(max(0, round((box[0] - box[2] / 2) * w)))
+        y1 = int(max(0, round((box[1] - box[3] / 2) * h)))
+        x2 = int(min(w, round((box[0] + box[2] / 2) * w)))
+        y2 = int(min(h, round((box[1] + box[3] / 2) * h)))
         if x1 == x2 or y1 == y2:
             return None
         mask = np.zeros((h, w, 1), np.float32)
@@ -303,41 +426,82 @@ class MetaDataset:
     def _compose_input(self, img, box: np.ndarray):
         """(image array, mask) per metain_type; type 3/4 appends the cropped
         object resized to full size (dataset.py:386-391)."""
+        s = self.settings
         mask = self._make_mask(box)
         if mask is None:
             return None, None
         arr = image_to_array(img)
-        if self.settings.metain_type in (3, 4):
-            croped = img.crop(self._box_pixels(box)).resize(img.size)
+        if s.metain_type in (3, 4):
+            w, h = self.mask_shape
+            x1 = int(max(0, round((box[0] - box[2] / 2) * w)))
+            y1 = int(max(0, round((box[1] - box[3] / 2) * h)))
+            x2 = int(min(w, round((box[0] + box[2] / 2) * w)))
+            y2 = int(min(h, round((box[1] + box[3] / 2) * h)))
+            croped = img.crop((x1, y1, x2, y2)).resize(img.size)
             arr = np.concatenate([arr, image_to_array(croped)], axis=-1)
         return arr, mask
 
-    def _get(self, clsid: int, metaind: int):
-        imgpath = self.metalines[clsid][metaind].rstrip()
-        labpath = get_labpath_1c(imgpath, self.classes[clsid], self.settings.data)
-        img = _open_resized(imgpath, self.meta_shape)
-        for box in load_label_boxes(labpath):
+    def _get(self, clsid: int, metaind: int | str):
+        img, boxes = self._load_support(clsid, metaind)
+        for box in boxes:
             arr, mask = self._compose_input(img, box)
             if arr is not None:
                 return arr, mask
+        # resample until a usable mask appears (never during ensemble)
+        while not self.ensemble:
+            imgpath = self.rng.sample(self.metalines[clsid], 1)[0].rstrip()
+            img, boxes = self._load_support(clsid, imgpath)
+            for box in boxes:
+                arr, mask = self._compose_input(img, box)
+                if arr is not None:
+                    return arr, mask
         return None, None
+
+    def _filter(self, inds):
+        kept = []
+        for clsid, metaind in inds:
+            arr, mask = self._get(clsid, metaind)
+            if arr is not None:
+                kept.append((clsid, metaind))
+        return kept
 
     # -- public ------------------------------------------------------------
 
-    def batches(self, batch_size: int):
-        """Yield stacked (metax (B,H,W,C), mask (B,h,w,1)[, clsids]); each
-        image is decoded once and its validity decided as it is loaded."""
-        chunk = []
-        for clsid, metaind in self.inds:
-            arr, mask = self._get(clsid, metaind)
-            if arr is None:
-                continue
-            chunk.append((arr, mask, clsid))
-            if len(chunk) == batch_size:
+    def __getitem__(self, index: int):
+        self._ensure_filtered()
+        clsid, metaind = self.inds[index]
+        arr, mask = self._get(clsid, metaind)
+        if self.with_ids:
+            return arr, mask, clsid
+        return arr, mask
+
+    def batches(self, batch_size: int | None = None):
+        """Yield stacked (metax (B,H,W,C), mask (B,h,w,1)[, clsids])."""
+        bs = batch_size or self.batch_size
+        if self.ensemble and self._needs_filter:
+            # single-decode stream: validity decided as images are loaded,
+            # exactly the set the eager filter()+re-decode would keep
+            chunk = []
+            for clsid, metaind in self.inds:
+                arr, mask = self._get(clsid, metaind)
+                if arr is None:
+                    continue
+                chunk.append((arr, mask, clsid))
+                if len(chunk) == bs:
+                    yield self._stack(chunk)
+                    chunk = []
+            if chunk:
                 yield self._stack(chunk)
-                chunk = []
-        if chunk:
-            yield self._stack(chunk)
+            return
+        for start in range(0, len(self.inds) - (0 if self.ensemble else bs - 1),
+                           bs):
+            chunk = [self[i] for i in range(start, min(start + bs, len(self.inds)))]
+            arrs = np.stack([c[0] for c in chunk])
+            masks = np.stack([c[1] for c in chunk])
+            if self.with_ids:
+                yield arrs, masks, np.asarray([c[2] for c in chunk])
+            else:
+                yield arrs, masks
 
     def _stack(self, chunk):
         arrs = np.stack([c[0] for c in chunk])

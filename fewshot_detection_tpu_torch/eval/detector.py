@@ -80,7 +80,7 @@ class MetaDetector:
     def class_codes(self, metax: np.ndarray, mask: np.ndarray) -> list[np.ndarray]:
         """Support batch -> list of per-class code tensors (N, 1, 1, C).
         Returned as float32 host arrays (they get averaged/spliced on host)."""
-        out = meta_mod.meta_forward(
+        out, _ = meta_mod.meta_forward(
             self.spec, self.params,
             self._to_device(metax, self.compute_dtype),
             self._to_device(mask, self.compute_dtype),
@@ -94,7 +94,8 @@ class MetaDetector:
         on the device for the box decode. Rows are image-major."""
         x = self._to_device(images, self.compute_dtype)
         dw = [self._to_device(d, self.compute_dtype) for d in dynamic_weights]
-        return meta_mod.detect_forward(self.spec, self.params, x, dw, fuse=True).float()
+        y, _ = meta_mod.detect_forward(self.spec, self.params, x, dw, fuse=True)
+        return y.float()
 
     def __call__(self, images, metax, mask) -> torch.Tensor:
         return self.detect(images, self.class_codes(metax, mask))

@@ -10,6 +10,9 @@ The port's tree has the same nesting with `torch.Tensor` leaves on one
 device, and conv weights in PyTorch's OIHW order (stored `channels_last`,
 the layout the NHWC executor hands to the convolution). Everything else
 keeps its shape.
+
+A momentum tree has the parameters' structure and goes through the same two
+functions. `require_grads` marks what a trainer differentiates.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ def from_jax_params(spec: NetSpec, params: list, device="cuda") -> list:
     dev = torch.device(device)
 
     def leaf(a):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32))).to(dev)
+        # a copy, never a view of the caller's array: trainers update the
+        # tensors in place
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     out: list = []
     for layer, p in zip(spec.layers, params):
@@ -77,3 +82,31 @@ def to_jax_params(spec: NetSpec, params: list) -> list:
             q["bn"] = {k: leaf(v) for k, v in p["bn"].items()}
         out.append(q)
     return out
+
+
+def from_jax_momentum(spec: NetSpec, momentum: list, device="cuda") -> list:
+    """numpy momentum tree (the parameters' structure, HWIO) -> tensor tree."""
+    return from_jax_params(spec, momentum, device)
+
+
+def to_jax_momentum(spec: NetSpec, momentum: list) -> list:
+    """The port's momentum tree -> numpy HWIO tree."""
+    return to_jax_params(spec, momentum)
+
+
+def require_grads(params):
+    """Make every leaf of a parameter tree (one network's list, or the meta
+    model's dict of lists) require gradients, except the BN running
+    statistics `bn.mean` / `bn.var`, which are state. In place; returns the
+    tree."""
+    for net in params.values() if isinstance(params, dict) else [params]:
+        for p in net:
+            if p is None:
+                continue
+            for k in ("w", "b"):
+                if k in p:
+                    p[k].requires_grad_(True)
+            if "bn" in p:
+                p["bn"]["gamma"].requires_grad_(True)
+                p["bn"]["beta"].requires_grad_(True)
+    return params

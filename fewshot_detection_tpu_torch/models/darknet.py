@@ -1,4 +1,4 @@
-"""Functional executor for static (non-dynamic) darknet graphs, inference only.
+"""Functional executor for static (non-dynamic) darknet graphs.
 
 `init_params` / `apply_network` are the init/apply pair for a compiled
 `NetSpec`: plain YOLOv2 backbones and the reweighting learnet
@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from ..ops.layers import (
     BN_EPS,
     batchnorm_apply,
+    bn_normalize,
+    bn_train_affine,
     global_avgpool,
     global_maxpool,
     leaky_relu,
@@ -59,14 +61,46 @@ def conv2d(
     return y.permute(0, 2, 3, 1)
 
 
-def apply_conv_layer(layer: LayerSpec, p: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """conv [+ BN (running stats)] [+ activation]."""
+def _normalize_activate(y, inv, bias, activation: str) -> torch.Tensor:
+    return _activate(bn_normalize(y, inv, bias), activation)
+
+
+def bn_train_activate(
+    y: torch.Tensor, bn: dict, activation: str, remat: bool = False
+) -> tuple[torch.Tensor, dict]:
+    """Training BN + activation on a conv output; returns (out, new stats).
+
+    ``remat=True`` keeps the conv output and the batch statistics and
+    recomputes only the normalize/activation epilogue in the backward (the
+    tensors the JAX trainer's rematerialization policy saves). The
+    statistics stay outside the checkpointed function: recomputing them
+    would launch the `bn_sums` kernel once more over the whole conv output."""
+    inv, bias, new_stats = bn_train_affine(y, bn)
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        out = checkpoint(_normalize_activate, y, inv, bias, activation, use_reentrant=False)
+    else:
+        out = _normalize_activate(y, inv, bias, activation)
+    return out, new_stats
+
+
+def apply_conv_layer(
+    layer: LayerSpec,
+    p: dict[str, Any],
+    x: torch.Tensor,
+    train: bool = False,
+    remat: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
+    """conv [+ BN] [+ activation]; returns (y, new_bn_stats|None)."""
     y = conv2d(x, p["w"], layer.stride, layer.pad, layer.groups)
+    if layer.batch_normalize and train:
+        return bn_train_activate(y, p["bn"], layer.activation, remat)
     if layer.batch_normalize:
         y = batchnorm_apply(y, p["bn"])
     elif "b" in p:
         y = y + p["b"].to(y.dtype)
-    return _activate(y, layer.activation)
+    return _activate(y, layer.activation), None
 
 
 def _bn_init(c: int) -> dict:
@@ -129,17 +163,23 @@ def apply_network(
     params: Params,
     x: torch.Tensor,
     *,
+    train: bool = False,
     start: int = 0,
     stop: int | None = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Run a static network at inference. Returns (output, aux) where aux
-    carries ``splits`` (tensors emitted by [split] layers, in order — the
-    learnet's per-split dynamic-weight outputs, darknet_meta.py:120-126).
+    """Run a static network. Returns (output, aux) where aux carries
+    ``bn_updates`` ({layer_index: new stats} when train=True) and
+    ``splits`` (tensors emitted by [split] layers, in order — the learnet's
+    per-split dynamic-weight outputs, darknet_meta.py:120-126).
 
     ``start``/``stop`` run a sub-range of layers (used for feat_layer>0
-    learnet stems and partial-backbone extraction).
+    learnet stems and partial-backbone extraction). ``remat`` (training
+    only) recomputes the BN/activation epilogues in the backward, see
+    `bn_train_activate`.
     """
     outputs: dict[int, torch.Tensor] = {}
+    bn_updates: dict[int, dict] = {}
     splits: list[torch.Tensor] = []
     end = stop if stop is not None else len(spec.layers)
 
@@ -148,7 +188,9 @@ def apply_network(
         if kind == "conv":
             if layer.dynamic:
                 raise ValueError("dynamic conv in a static network — use models.meta")
-            x = apply_conv_layer(layer, params[layer.index], x)
+            x, stats = apply_conv_layer(layer, params[layer.index], x, train, remat)
+            if stats is not None:
+                bn_updates[layer.index] = stats
         elif kind == "maxpool":
             x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
         elif kind == "reorg":
@@ -182,7 +224,7 @@ def apply_network(
             raise ValueError(f"unhandled layer kind {kind!r}")
         outputs[layer.index] = x
 
-    return x, {"splits": splits}
+    return x, {"bn_updates": bn_updates, "splits": splits}
 
 
 def fold_batchnorm(spec: NetSpec, params: Params) -> Params:

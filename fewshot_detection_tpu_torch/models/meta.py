@@ -14,7 +14,7 @@ Reference behavior being reproduced (file:line in the reference):
 The shipped dconv+head pair is fused into a single (B*H*W, C) x (C, N*K)
 matrix product, so the (B*n_cls, H, W, 1024) expansion is never
 materialized. The general grouped-conv path is kept for nonstandard cfgs
-(partial weights, multi-split learnets). Inference only.
+(partial weights, multi-split learnets).
 """
 
 from __future__ import annotations
@@ -32,7 +32,15 @@ from ..ops.layers import (
     maxpool_stride1,
     reorg,
 )
-from .darknet import Params, _activate, apply_conv_layer, apply_network, conv2d, init_params
+from .darknet import (
+    Params,
+    _activate,
+    apply_conv_layer,
+    apply_network,
+    bn_train_activate,
+    conv2d,
+    init_params,
+)
 from .spec import LayerSpec, NetSpec
 
 
@@ -69,11 +77,15 @@ def meta_forward(
     mask: torch.Tensor | None,
     *,
     metain_type: int = 2,
-) -> list[torch.Tensor]:
+    train: bool = False,
+    remat: bool = False,
+) -> tuple[list[torch.Tensor], dict]:
     """Support branch: (N, Hm, Wm, 3|6) images + (N, Hmask, Wmask, 1) masks
-    -> list of per-class code tensors (N, 1, 1, C) (one per learnet [split]
-    plus the final output)."""
+    -> (list of per-class code tensors (N, 1, 1, C), one per learnet [split]
+    plus the final output; aux with ``bn_updates`` keyed ``darknet_stem``
+    (feat_layer > 0 only) and ``learnet``)."""
     feat_layer = spec.learnet.feat_layer
+    bn_updates: dict[str, dict] = {}
     if feat_layer > 0:
         # Run the first `feat_layer` backbone layers on the support image.
         # 6-channel inputs (metain_type 4: image + cropped object) are split
@@ -82,7 +94,10 @@ def meta_forward(
         done_split = metax.shape[-1] == 6
         if done_split:
             metax = torch.cat([metax[..., :3], metax[..., 3:]], dim=0)
-        metax, _ = apply_network(spec.darknet, params["darknet"], metax, stop=feat_layer)
+        metax, aux = apply_network(
+            spec.darknet, params["darknet"], metax, train=train, stop=feat_layer, remat=remat
+        )
+        bn_updates["darknet_stem"] = aux["bn_updates"]
         if done_split:
             half = metax.shape[0] // 2
             metax = torch.cat([metax[:half], metax[half:]], dim=-1)
@@ -91,8 +106,9 @@ def meta_forward(
             raise ValueError(f"metain_type {metain_type} requires a mask input")
         metax = torch.cat([metax, mask.to(metax.dtype)], dim=-1)
 
-    out, aux = apply_network(spec.learnet, params["learnet"], metax)
-    return list(aux["splits"]) + [out]
+    out, aux = apply_network(spec.learnet, params["learnet"], metax, train=train, remat=remat)
+    bn_updates["learnet"] = aux["bn_updates"]
+    return list(aux["splits"]) + [out], {"bn_updates": bn_updates}
 
 
 # ---------------------------------------------------------------------------
@@ -216,12 +232,15 @@ def detect_forward(
     x: torch.Tensor,
     dynamic_weights: list[torch.Tensor],
     *,
+    train: bool = False,
     fuse: bool = True,
-) -> torch.Tensor:
-    """Backbone + dynamic reweighting + head, at inference.
+    remat: bool = False,
+) -> tuple[torch.Tensor, dict]:
+    """Backbone + dynamic reweighting + head.
 
     x: (B, H, W, 3); dynamic_weights: list of (n_cls, kh, kw, Cd).
-    Returns (B*n_cls, H/32, W/32, A*(5+nC)), image-major rows.
+    Returns ((B*n_cls, H/32, W/32, A*(5+nC)) image-major rows, aux with
+    ``bn_updates`` {layer_index: new stats} when train=True).
 
     Tuple routes (``concat=0``, darknet_meta.py:166-168) emit ``(x1, x2)``
     unchanged; a downstream dynamic conv consumes the pair as
@@ -231,6 +250,7 @@ def detect_forward(
     dparams = params["darknet"]
     layers = spec.darknet.layers
     outputs: dict = {}
+    bn_updates: dict[int, dict] = {}
 
     dyn_cnt = 0
     dw_cursor = 0
@@ -264,12 +284,20 @@ def detect_forward(
                     skip_next = True
                 else:
                     x = dynamic_conv_general(x, dw, layer, is_first=is_first)
-                    if layer.batch_normalize:
-                        x = batchnorm_apply(x, dparams[layer.index]["bn"])
-                    x = _activate(x, layer.activation)
+                    if layer.batch_normalize and train:
+                        x, stats = bn_train_activate(
+                            x, dparams[layer.index]["bn"], layer.activation, remat
+                        )
+                        bn_updates[layer.index] = stats
+                    else:
+                        if layer.batch_normalize:
+                            x = batchnorm_apply(x, dparams[layer.index]["bn"])
+                        x = _activate(x, layer.activation)
                 dyn_cnt += 1
             else:
-                x = apply_conv_layer(layer, dparams[layer.index], x)
+                x, stats = apply_conv_layer(layer, dparams[layer.index], x, train, remat)
+                if stats is not None:
+                    bn_updates[layer.index] = stats
         elif kind == "maxpool":
             x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
         elif kind == "reorg":
@@ -308,4 +336,29 @@ def detect_forward(
             raise ValueError(f"unhandled layer kind {kind!r} in detect_forward")
         outputs[layer.index] = x
 
-    return x
+    return x, {"bn_updates": bn_updates}
+
+
+def forward(
+    spec: MetaSpec,
+    params: dict[str, Params],
+    x: torch.Tensor,
+    metax: torch.Tensor,
+    mask: torch.Tensor | None,
+    *,
+    metain_type: int = 2,
+    train: bool = False,
+    fuse: bool = True,
+    remat: bool = False,
+) -> tuple[torch.Tensor, dict]:
+    """Full episodic forward (darknet_meta.py:197-201)."""
+    dynamic_weights, maux = meta_forward(
+        spec, params, metax, mask, metain_type=metain_type, train=train, remat=remat
+    )
+    y, daux = detect_forward(
+        spec, params, x, dynamic_weights, train=train, fuse=fuse, remat=remat
+    )
+    return y, {
+        "bn_updates": {"darknet": daux["bn_updates"], **maux["bn_updates"]},
+        "dynamic_weights": dynamic_weights,
+    }

@@ -6,6 +6,7 @@ from .layers import (
     global_avgpool,
     leaky_relu,
     batchnorm_apply,
+    batchnorm_train,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "global_avgpool",
     "leaky_relu",
     "batchnorm_apply",
+    "batchnorm_train",
 ]

@@ -1,17 +1,42 @@
 """Core stateless layer ops on NHWC tensors.
 
-Inference-time layers of the darknet executor. Tensors are NHWC at every
-function boundary, as in the JAX package; the pooling ops hand PyTorch a
-permuted NCHW *view* of the same memory (which PyTorch sees as a
+Layers of the darknet executor, at inference and in training. Tensors are
+NHWC at every function boundary, as in the JAX package; the pooling ops hand
+PyTorch a permuted NCHW *view* of the same memory (which PyTorch sees as a
 `channels_last` tensor), so no layout copy is made in either direction.
+Training BatchNorm takes its statistics from the `bn_sums` kernel
+(`ops/bn_sums.py`), not from `F.batch_norm`.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
+from .bn_sums import bn_sums
+
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch nn.BatchNorm2d default, what the reference trained with
+
+
+def bn_train_config() -> tuple[float, bool]:
+    """(running-stat momentum, use-unbiased-variance-in-running-update).
+
+    Default: torch nn.BatchNorm2d semantics — momentum 0.1, unbiased
+    variance in the running update (the reference trained with torch BN).
+
+    FSD_BN_DARKNET=1 selects the darknet extension's semantics instead
+    (batchnorm.c:196-203: rolling = .99*rolling + .01*batch_stat with the
+    BIASED batch variance) — for continuing/serving .weights files whose
+    running stats were produced by that extension. The normalization math
+    itself (biased batch stats, eps 1e-5) is identical in both modes. The
+    variable is read at every call.
+    """
+    if os.environ.get("FSD_BN_DARKNET") == "1":
+        return 0.01, False
+    return BN_MOMENTUM, True
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -72,3 +97,38 @@ def batchnorm_apply(x: torch.Tensor, bn: dict) -> torch.Tensor:
     inv = torch.rsqrt(bn["var"] + BN_EPS) * bn["gamma"]
     bias = bn["beta"] - bn["mean"] * inv
     return x * inv.to(x.dtype) + bias.to(x.dtype)
+
+
+def bn_train_affine(x: torch.Tensor, bn: dict) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Batch statistics of x (..., C) -> (inv, bias, new_stats): the float32
+    per-channel affine pair that normalizes x with its biased batch
+    statistics, and the updated running statistics (detached). The sums come
+    from `bn_sums` (float32 accumulation; the CUDA kernel on the card), so
+    gradients reach x through the kernel's backward."""
+    n = x.numel() // x.shape[-1]
+    s, q = bn_sums(x)
+    mean = s / n
+    var = q / n - torch.square(mean)
+    inv = torch.rsqrt(var + BN_EPS) * bn["gamma"]
+    bias = bn["beta"] - mean * inv
+    momentum, use_unbiased = bn_train_config()
+    with torch.no_grad():
+        running_var = var * (n / max(n - 1, 1)) if use_unbiased else var
+        new_stats = {
+            "mean": (1 - momentum) * bn["mean"] + momentum * mean,
+            "var": (1 - momentum) * bn["var"] + momentum * running_var,
+        }
+    return inv, bias, new_stats
+
+
+def bn_normalize(x: torch.Tensor, inv: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x * inv + bias with the pair cast to x's dtype BEFORE the multiply."""
+    return x * inv.to(x.dtype) + bias.to(x.dtype)
+
+
+def batchnorm_train(x: torch.Tensor, bn: dict) -> tuple[torch.Tensor, dict]:
+    """Training BN: normalize with biased batch stats, return updated
+    running stats (unbiased var in the running update — torch semantics,
+    or the darknet extension's with FSD_BN_DARKNET=1)."""
+    inv, bias, new_stats = bn_train_affine(x, bn)
+    return bn_normalize(x, inv, bias), new_stats

@@ -3,8 +3,8 @@
 `nms_rows` replaces the TPU kernel `ops/nms_device.py:_nms_kernel` of the JAX
 package (reached through `nms_pallas` under a per-row `vmap`) for ALL
 (image, class) rows of a batch at once. The kernel source is
-`csrc/nms.cu`; it is compiled with `nvcc` for sm_90a at first use into
-`_build/` inside the package and loaded with `ctypes`.
+`csrc/nms.cu`; `ops/_build.py` compiles it with `nvcc` for sm_90a at first
+use into `_build/` inside the package and loads it with `ctypes`.
 
 Bound on an H100: the function reads R*K*20 bytes and writes R*K (a few
 hundred nanoseconds at the card's memory rate), and the pairwise IoUs are
@@ -23,77 +23,30 @@ tensors and is what the kernel is compared against; on a CUDA tensor
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
+from ._build import load_library
 from .boxes import iou_xywh_t
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NMS_SOURCE = os.path.join(_PKG_DIR, "csrc", "nms.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
 # K*(16+4) bytes of shared memory per row must fit one block's 227 KB
 MAX_K = 11000
 
-
-def _find_nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-        shutil.which("nvcc") or "",
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the NMS kernel cannot be built")
-
-
-def build_nms_library(verbose: bool = False) -> str:
-    """Compile csrc/nms.cu into _build/ (keyed by the source's hash) and
-    return the library's path. Raises when the compiler is missing or fails."""
-    with open(NMS_SOURCE, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = os.path.join(BUILD_DIR, f"libfsd_nms_{tag}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.tmp.{os.getpid()}"
-    cmd = [_find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, NMS_SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib)
-    return lib
-
-
-class _Lib:
-    """The loaded library, built on first use and then kept."""
-
-    fn = None
+_fn = None
 
 
 def _kernel():
-    if _Lib.fn is None:
-        lib = ctypes.CDLL(build_nms_library())
-        fn = lib.fsd_nms_rows
+    """`fsd_nms_rows` of csrc/nms.cu, built and loaded on first use."""
+    global _fn
+    if _fn is None:
+        fn = load_library("nms").fsd_nms_rows
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _Lib.fn = fn
-    return _Lib.fn
+        _fn = fn
+    return _fn
 
 
 def _check(boxes: torch.Tensor, dsel: torch.Tensor) -> tuple[int, int]:

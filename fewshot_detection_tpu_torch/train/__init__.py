@@ -1,0 +1,10 @@
+from .optim import init_momentum, lr_schedule, neg_ratio_lr_factor, sgd_update
+from .trainer import MetaTrainer
+
+__all__ = [
+    "init_momentum",
+    "lr_schedule",
+    "neg_ratio_lr_factor",
+    "sgd_update",
+    "MetaTrainer",
+]

@@ -1,0 +1,179 @@
+"""Episodic meta train step with replica-group semantics, on one device.
+
+Counterpart of the JAX package's `train/trainer.py:MetaTrainer`. The step
+takes inputs with a leading replica-group axis R. The JAX package vmaps the
+per-group episode over R and shards that axis one group per device; here
+the groups run one after another on one device: each group normalizes with
+its OWN batch statistics, the groups' losses are summed and differentiated
+once, the metrics are summed, and the new BN running statistics are
+AVERAGED over the groups. This reproduces the reference's DataParallel
+layout — each replica gets its own support batch with one sample per class
+(train_meta.py:137-141, dataset.py:348).
+
+Parameters and momentum are updated IN PLACE (the JAX package donates its
+buffers instead): `step` returns the trees it was given. Every leaf except
+the BN running statistics must require gradients
+(`models.convert.require_grads`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..eval.detector import resolve_device
+from ..models import meta as meta_mod
+from ..ops.region_loss import region_loss_v2
+from .optim import sgd_update, tree_leaves_with_path, tree_map, tree_map_with_path
+
+
+def _decode_images(arrays, dtype):
+    """uint8-shipped image tensors (FSD_INPUT_U8) -> [0,1] compute dtype;
+    non-u8 inputs pass through."""
+    return tuple(a.to(dtype) / 255.0 if a.dtype == torch.uint8 else a for a in arrays)
+
+
+@torch.no_grad()
+def apply_bn_updates(params: list, updates: dict[int, dict]) -> list:
+    """Write new running stats into the per-layer params list, in place."""
+    for idx, stats in updates.items():
+        bn = params[idx]["bn"]
+        bn["mean"].copy_(stats["mean"])
+        bn["var"].copy_(stats["var"])
+    return params
+
+
+def apply_meta_bn_updates(params: dict, bn: dict) -> dict:
+    # stem updates (feat_layer>0) apply first; detect-pass updates win on
+    # overlap, mirroring the reference's sequential in-place updates
+    apply_bn_updates(params["darknet"], bn.get("darknet_stem", {}))
+    apply_bn_updates(params["darknet"], bn.get("darknet", {}))
+    apply_bn_updates(params["learnet"], bn.get("learnet", {}))
+    return params
+
+
+def _mean_over_groups(trees: list):
+    if len(trees) == 1:
+        return trees[0]
+    return tree_map(lambda *xs: torch.stack(xs).mean(dim=0), *trees)
+
+
+def _sum_metrics(per_group: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in per_group]).sum(dim=0) for k in per_group[0]}
+
+
+class MetaTrainer:
+    """Episodic meta-detector training step.
+
+    Step inputs (R = replica groups, b = per-group detection batch), numpy
+    arrays or tensors on any device:
+      x      (R, b, H, W, 3)        detection images
+      metax  (R, n_cls, Hm, Wm, Cm) support images (one per class, in order)
+      mask   (R, n_cls, hm, wm, 1)  support masks
+      target (R, b, n_cls, 50, 5)   per-class-binned labels
+      keep   (R, b*n_cls)           neg-filter weights (host-sampled)
+      seen   host int               sample counter (warm-up switch)
+      lr     host float             current learning rate (already /batch)
+    """
+
+    def __init__(
+        self,
+        spec: meta_mod.MetaSpec,
+        *,
+        momentum: float = 0.9,
+        weight_decay: float = 0.0,
+        metain_type: int = 2,
+        fuse: bool = True,
+        remat: bool = False,
+        clip_norm: float = 0.0,
+        image_dtype: torch.dtype = torch.float32,
+        warmup_seen: int = 12800,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.region = spec.region
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+        # coord warm-up threshold (settings.warmup_seen; reference hardcodes
+        # 12800, region_loss.py:70-79)
+        self.warmup_seen = warmup_seen
+        self.metain_type = metain_type
+        self.fuse = fuse
+        # compute dtype that uint8-shipped inputs decode to (FSD_INPUT_U8)
+        self.image_dtype = image_dtype
+        # keep conv outputs and BN batch statistics, recompute the
+        # normalize/activation epilogues in the backward
+        self.remat = remat
+
+    def _episode_loss(self, params, x, metax, mask, target, keep, seen):
+        x, metax, mask = _decode_images((x, metax, mask), self.image_dtype)
+        n_cls = metax.shape[0]
+        y, aux = meta_mod.forward(
+            self.spec, params, x, metax, mask,
+            metain_type=self.metain_type, train=True, fuse=self.fuse, remat=self.remat,
+        )
+        loss, metrics = region_loss_v2(
+            y, target, keep, seen, self.region, n_cls, warmup_seen=self.warmup_seen
+        )
+        return loss, aux["bn_updates"], metrics
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device, non_blocking=True)
+
+    def loss_and_grads(self, params, batch: dict, seen: int):
+        """Forward and backward of one step, nothing updated: (summed loss,
+        gradient tree of params' shape, per-group bn_updates, summed
+        metrics). A leaf the loss does not reach, and the BN running
+        statistics, get zero gradients."""
+        x, metax, mask, target, keep = (
+            self._to_device(batch[k]) for k in ("x", "metax", "mask", "target", "keep")
+        )
+        paths, leaves = zip(*(
+            (p, t) for p, t in tree_leaves_with_path(params) if t.requires_grad
+        ))
+        losses, bns, metrics = [], [], []
+        for r in range(x.shape[0]):
+            loss, bn, m = self._episode_loss(
+                params, x[r], metax[r], mask[r], target[r], keep[r], seen
+            )
+            losses.append(loss)
+            bns.append(bn)
+            metrics.append({k: v.detach() for k, v in m.items()})
+        total = losses[0] if len(losses) == 1 else torch.stack(losses).sum()
+        got = dict(zip(paths, torch.autograd.grad(total, leaves, allow_unused=True)))
+        grads = tree_map_with_path(
+            lambda path, t: got[path] if got.get(path) is not None else torch.zeros_like(t),
+            params,
+        )
+        return total.detach(), grads, bns, _sum_metrics(metrics)
+
+    def step(self, params, mom, batch: dict, seen: int, lr: float):
+        """One train step; returns (params, mom, metrics) with the metrics
+        as 0-d tensors left on the device (summed over the groups)."""
+        _, grads, bns, metrics = self.loss_and_grads(params, batch, seen)
+        sgd_update(
+            params, grads, mom, lr,
+            momentum=self.momentum, weight_decay=self.weight_decay,
+            decay_bn_and_bias=True,  # train_meta.py decays everything
+            clip_norm=self.clip_norm,
+        )
+        apply_meta_bn_updates(params, _mean_over_groups(bns))
+        return params, mom, metrics
+
+    def multi_step(self, params, mom, batches: dict, seens, lrs):
+        """N train steps, one after another: the same math as N step()
+        calls. (The JAX package scans them inside one compiled program to
+        save dispatches; here a step is eager either way.)
+
+        batches: the step() dict with an extra leading axis N on every
+        leaf; seens/lrs: N values, seens[i] already including step i's
+        images (the CLI increments `seen` before each step). Returns
+        (params, mom, metrics) with metrics stacked (N, ...)."""
+        per_step = []
+        for i, (seen, lr) in enumerate(zip(seens, lrs)):
+            batch = {k: v[i] for k, v in batches.items()}
+            params, mom, metrics = self.step(params, mom, batch, int(seen), float(lr))
+            per_step.append(metrics)
+        return params, mom, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+

@@ -14,7 +14,8 @@ PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "valid_ensemble_torch.py")]
+    files = [os.path.join(REPO, n) for n in
+             ("chip_smoke.py", "valid_ensemble_torch.py", "train_meta_torch.py")]
     for root, _, names in os.walk(PKG):
         if "_build" in root or "__pycache__" in root:
             continue
@@ -27,7 +28,10 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "import sys, pkgutil, importlib\n"
         "import fewshot_detection_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 33, names\n"
+        "for n in ('ops.bn_sums', 'ops._build', 'ops.region_loss', 'train.optim', 'train.trainer',\n"
+        "          'cli.train_meta_cli', 'data.augment', 'data.loader', 'utils.logging'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"
         "       or k == 'fewshot_detection_tpu' or k.startswith('fewshot_detection_tpu.')]\n"
@@ -64,21 +68,43 @@ FORBIDDEN = {
     "bare except": re.compile(r"^\s*except\s*:", re.M),
     "torchvision": re.compile(r"^\s*(import|from)\s+torchvision\b", re.M),
     "torch.compile": re.compile(r"torch\.compile\("),
+    "library batch norm": re.compile(r"F\.batch_norm\(|nn\.BatchNorm\dd\(|torch\.batch_norm\("),
 }
 
 
 @pytest.mark.parametrize("what", sorted(FORBIDDEN))
 def test_port_sources_hold_no(what):
     files = _port_sources()
-    assert len(files) > 20
+    assert len(files) > 35
     hits = [os.path.relpath(f, REPO) for f in files if FORBIDDEN[what].search(open(f).read())]
     assert not hits, f"{what} in {hits}"
 
 
-def test_kernel_wrapper_has_no_try_around_build_or_launch():
-    src = open(os.path.join(PKG, "ops", "nms_device.py")).read()
+@pytest.mark.parametrize("module,counts", [
+    ("nms_device.py", ["nms_rows.launches += 1"]),
+    ("bn_sums.py", ["bn_sums.launches += 1", "bn_sums.backward_launches += 1",
+                    "bn_sums.layout_copies += 1"]),
+    ("_build.py", []),
+])
+def test_kernel_wrapper_has_no_try_around_build_or_launch(module, counts):
+    src = open(os.path.join(PKG, "ops", module)).read()
     assert not re.search(r"^\s*try\s*:", src, re.M)
-    assert "nms_rows.launches += 1" in src
+    for count in counts:
+        assert src.count(count) == 1, count  # counted where the kernel launches, nowhere else
+
+
+def test_both_kernels_build_through_the_shared_helper():
+    from fewshot_detection_tpu_torch.ops import _build
+
+    for name in ("nms", "bn_sums"):
+        assert os.path.isfile(_build.source_path(name))
+        lib = _build.library_path(name)
+        assert os.path.dirname(lib) == os.path.join(PKG, "_build")
+        assert re.fullmatch(rf"libfsd_{name}_[0-9a-f]{{12}}\.so", os.path.basename(lib))
+    assert "-fmad=false" in _build.NVCC_FLAGS and "--use_fast_math" not in _build.NVCC_FLAGS
+    for module in ("nms_device.py", "bn_sums.py"):
+        src = open(os.path.join(PKG, "ops", module)).read()
+        assert "load_library(" in src and "subprocess" not in src and "nvcc" not in src.split('"""')[2]
 
 
 def test_chip_smoke_fails_without_a_gpu():
@@ -103,3 +129,16 @@ def test_entry_points_default_to_cuda_and_raise_without_one():
     cfgs = [os.path.join(REPO, "cfg", n) for n in ("tiny_darknet_dynamic.cfg", "tiny_reweighting.cfg")]
     with pytest.raises(RuntimeError):
         MetaDetector(*cfgs)  # device defaults to "cuda"
+
+    import inspect
+
+    from fewshot_detection_tpu_torch.cli import train_meta_cli
+    from fewshot_detection_tpu_torch.train import MetaTrainer
+
+    assert inspect.signature(MetaTrainer.__init__).parameters["device"].default == "cuda"
+    assert inspect.signature(train_meta_cli.main).parameters["device"].default == "cuda"
+    m = MetaDetector(*cfgs, device="cpu")
+    with pytest.raises(RuntimeError):
+        MetaTrainer(m.spec)
+    with pytest.raises(RuntimeError):
+        train_meta_cli.main("no.data", *cfgs, "no.weights")  # refused before any file is read

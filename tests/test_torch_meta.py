@@ -63,7 +63,7 @@ def test_meta_forward_matches_jax(tiny):
     spec, jspec, tp, jp = tiny
     metax, mask = _support(np.random.default_rng(2), N_CLS, 64)
     with torch.no_grad():
-        got = tm.meta_forward(spec, tp, t(metax), t(mask))
+        got, _ = tm.meta_forward(spec, tp, t(metax), t(mask))
     want, _ = jm.meta_forward(jspec, jp, jnp.asarray(metax), jnp.asarray(mask))
     assert len(got) == len(want) == 1
     assert tuple(got[0].shape) == (N_CLS, 1, 1, 64)
@@ -83,7 +83,7 @@ def test_detect_forward_matches_jax(tiny, fuse):
     x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
     dw = rng.standard_normal((N_CLS, 1, 1, 64)).astype(np.float32)
     with torch.no_grad():
-        got = tm.detect_forward(spec, tp, t(x), [t(dw)], fuse=fuse)
+        got, _ = tm.detect_forward(spec, tp, t(x), [t(dw)], fuse=fuse)
     want, _ = jm.detect_forward(jspec, jp, jnp.asarray(x), [jnp.asarray(dw)], fuse=fuse)
     assert tuple(got.shape) == tuple(want.shape) == (2 * N_CLS, 2, 2, 30)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -97,8 +97,8 @@ def test_fused_head_equals_general_path(tiny):
     x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
     dw = rng.standard_normal((N_CLS, 1, 1, 64)).astype(np.float32)
     with torch.no_grad():
-        a = tm.detect_forward(spec, tp, t(x), [t(dw)], fuse=True)
-        b = tm.detect_forward(spec, tp, t(x), [t(dw)], fuse=False)
+        a, _ = tm.detect_forward(spec, tp, t(x), [t(dw)], fuse=True)
+        b, _ = tm.detect_forward(spec, tp, t(x), [t(dw)], fuse=False)
     np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
@@ -160,7 +160,7 @@ def test_partial_weight_bn_and_class_broadcast_route_match_jax():
     x = rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
     dw = rng.standard_normal((3, 1, 1, 8)).astype(np.float32)
     with torch.no_grad():
-        got = tm.detect_forward(spec, tp, t(x), [t(dw)])
+        got, _ = tm.detect_forward(spec, tp, t(x), [t(dw)])
     want, _ = jm.detect_forward(jspec, jp, jnp.asarray(x), [jnp.asarray(dw)])
     assert tuple(got.shape) == tuple(want.shape) == (6, 16, 16, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -179,7 +179,7 @@ def test_feat_layer_stem_with_six_channel_support_matches_jax():
     jp = {k: to_jnp_tree(v) for k, v in params.items()}
     metax = np.random.default_rng(11).uniform(0, 1, (3, 32, 32, 6)).astype(np.float32)
     with torch.no_grad():
-        got = tm.meta_forward(spec, tp, t(metax), None, metain_type=4)
+        got, _ = tm.meta_forward(spec, tp, t(metax), None, metain_type=4)
     want, _ = jm.meta_forward(jspec, jp, jnp.asarray(metax), None, metain_type=4)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
 

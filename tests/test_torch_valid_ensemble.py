@@ -170,12 +170,21 @@ def test_eval_datasets_equal_the_jax_packages(ws):
             np.testing.assert_array_equal(u, v)
 
 
-def test_training_mode_datasets_are_refused(ws):
+def test_training_mode_datasets_are_refused(ws, monkeypatch):
+    """The training-mode datasets exist now (their parity with the JAX
+    package is in test_torch_train_data.py); what is still refused, rather
+    than ignored, is the switch to the native loader that they lack."""
+    from fewshot_detection_tpu_torch.cli.train_meta_cli import refuse_waiting_switches
+
     data_options, _, _, settings = ws["cfgs"]
+    ds = DetectionDataset(data_options["valid"], settings, train=True)
+    assert ds.train and len(ds) > 0
+    ms = MetaDataset(data_options["meta"], settings, train=False, ensemble=False)
+    assert not ms.ensemble and len(ms) > 0
+    refuse_waiting_switches()
+    monkeypatch.setenv("FSD_NATIVE", "1")
     with pytest.raises(NotImplementedError):
-        DetectionDataset(data_options["valid"], settings, train=True)
-    with pytest.raises(NotImplementedError):
-        MetaDataset(data_options["meta"], settings, train=False, ensemble=False)
+        refuse_waiting_switches()
 
 
 def test_sweep_states_both_float32_precision_flags(ws, torch_files):

@@ -9,6 +9,10 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The test run uses several worker processes; PyTorch would give each of them
+# one thread per core, and the oversubscribed cores then make every test slow.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 
 def cfg(name):
     return os.path.join(REPO, "cfg", name)
