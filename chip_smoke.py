@@ -12,11 +12,19 @@ phases, each printing JSON lines:
   build    nvcc on csrc/nms.cu and csrc/bn_sums.cu, side by side, seconds taken
   kernels  `nms_rows` (the CUDA kernel) against `nms_rows_reference` (plain
            PyTorch) on the card: keep masks must be bit-equal at the main
-           path's shapes and on an adversarial set; `bn_sums` forward and
-           backward against their plain versions, float32 and bfloat16, at the
-           training path's extreme shapes and at awkward ones: the sums within
-           a stated bound of a float64 sum, two launches bit-equal, the
-           backward bit-equal to the plain version
+           path's shapes, on an adversarial set and on the edges of the
+           kernel's groups of 32 (K not a multiple of 32, rows with no live
+           candidate, rows that end inside a group, all-identical boxes);
+           `bn_sums` forward and backward against their plain versions,
+           float32 and bfloat16, at the training path's shapes and at awkward
+           ones that reach both forward kernels (the library says which ran:
+           "vector" or "scalar"): the sums within a stated bound of a float64
+           sum, one kernel a call on either path (counted by the profiler),
+           two launches bit-equal, also back to back and on a second stream
+           (the reused workspace), the backward bit-equal to the plain
+           version. Times are taken twice: per call made from Python one after
+           the other (`ms`, the measure of the earlier slices) and on the card
+           alone (`card_ms`)
   serve    the ensemble-eval path at full width (cfg/darknet_dynamic.cfg +
            cfg/reweighting_net.cfg at 416x416, the tracked trained checkpoint,
            batch 16, top_k 256) on images made from the seed: class codes from
@@ -37,7 +45,9 @@ phases, each printing JSON lines:
            step through the plain `bn_sums`, a `remat` step, 2 warm-up + 5
            timed steps with 29 forward and 29 backward `bn_sums` launches
            each, running statistics that moved, peak memory, images/s and the
-           share of a step spent in the `bn_sums` kernels
+           share of a step spent in the `bn_sums` kernels; then `bn_sums_step`,
+           the kernels' time and byte bound summed over the 29 BN layers of
+           one step, forward and backward, both types
 
 `--phases` runs a subset (for finding faults); the result line is printed
 only when every phase ran. Then the card's name and power limit, one JSON
@@ -78,6 +88,7 @@ from fewshot_detection_tpu_torch.models.spec import build_spec
 from fewshot_detection_tpu_torch.models.weights_io import load_weights_bf16_gz
 from fewshot_detection_tpu_torch.ops import _build, bn_sums as bn_mod, layers, nms_device
 from fewshot_detection_tpu_torch.ops.bn_sums import (
+    vector_width,
     bn_sums,
     bn_sums_backward,
     bn_sums_backward_reference,
@@ -115,14 +126,19 @@ SUM_TOL = 2e-6
 # published peaks of one H100 SXM: device memory rate, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# float32 operations of one pairwise IoU and its comparison, as csrc/nms.cu does them
-FLOPS_PER_PAIR = 38
+# float32 operations of one pairwise IoU and its comparison, as csrc/nms.cu
+# does them for a pair that meets (the terms of one box alone are computed
+# once per box and not counted here)
+FLOPS_PER_PAIR = 22
 # Greedy NMS is a chain: whether candidate j is kept is known only after every
-# kept candidate before it has applied its suppressions. The least a dependent
-# step can cost is one round trip through shared memory (the alive flag written
-# by one step and read by the next), about 20 cycles at the SXM part's 1.98 GHz
-# boost clock. Barrier and issue costs come on top, so this is a floor.
-CHAIN_STEP_S = 20 / 1.98e9
+# kept candidate before it has been settled. The IoUs do not depend on the
+# chain, so the least a dependent step can cost is one arithmetic operation
+# on a register that the step before wrote ("is any kept bit set in this
+# candidate's word"), 4 cycles at the SXM part's 1.98 GHz boost clock; a round
+# trip through shared memory (about 20 cycles) is what a design costs that
+# keeps the flags there, not what the function needs. Ballots, barriers and
+# scheduling costs come on top, so this is a floor.
+CHAIN_STEP_S = 4 / 1.98e9
 
 
 def check(cond: bool, msg: str) -> None:
@@ -141,6 +157,25 @@ def cuda_ms(fn, repeats: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
+def card_ms(fn, repeats: int) -> float:
+    """Mean milliseconds fn() takes on the card: the launches are queued
+    behind a spin kernel of some 10 ms, so the host has queued all of them
+    before the first starts and its cost per call does not show. `cuda_ms`
+    is what a caller sees who launches one call after the other; the two
+    differ where a call costs the host more than the card."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(repeats):
         fn()
@@ -229,7 +264,11 @@ def make_nms_rows(rng, r: int, k: int, kind: str = "clustered"):
     clustered  boxes scattered around a few centres per row (what a detector
                emits); rows end in masked slots of varying length
     adversarial  near-duplicates, tied scores, IoUs a few float32 steps on
-               either side of the threshold, and rows that are all masked"""
+               either side of the threshold, and rows that are all masked
+    edges      what a kernel that works in groups of 32 candidates can get
+               wrong: rows of identical boxes (full and cut short), rows with
+               no live candidate, rows whose live candidates end one past,
+               at, and one before a group's end, a single live candidate"""
     boxes = np.empty((r, k, 4), np.float32)
     centres = rng.uniform(0.2, 0.8, (r, 6, 2))
     which = rng.integers(0, 6, (r, k))
@@ -255,6 +294,12 @@ def make_nms_rows(rng, r: int, k: int, kind: str = "clustered"):
                 conf[row] = np.float32(0.5)
             else:  # nothing above the threshold in this row
                 n_valid[row] = 0
+    if kind == "edges":
+        lengths = (k, 0, 33, 32, 31, 1, 45, 64, 65, 0)
+        for row in range(r):
+            n_valid[row] = min(k, lengths[row % len(lengths)])
+            if row % len(lengths) in (0, 6):  # all-identical boxes
+                boxes[row] = boxes[row, :1]
     for row in range(r):
         conf[row, n_valid[row]:] = 0.0
     return np.ascontiguousarray(boxes), np.ascontiguousarray(conf)
@@ -330,7 +375,12 @@ def compare_kernel(boxes: torch.Tensor, dsel: torch.Tensor, timed: bool) -> dict
            "chain_steps": chain, **bound_ms(r, k, pairs, chain)}
     if timed:
         out["kernel_ms"] = cuda_ms(lambda: nms_rows(boxes, dsel, NMS_THRESH), 50)
+        out["card_ms"] = card_ms(lambda: nms_rows(boxes, dsel, NMS_THRESH), 50)
         out["plain_ms"] = cuda_ms(lambda: nms_rows_reference(boxes, dsel, NMS_THRESH), 2, warmup=1)
+        out["share_of_bound"] = out["bound_ms"] / out["card_ms"]
+        check(out["share_of_bound"] <= 1.0,
+              f"nms_rows took {out['card_ms']} ms, under its bound {out['bound_ms']} ms: "
+              "the bound is wrong")
     return out
 
 
@@ -338,20 +388,22 @@ def phase_kernels(seed: int) -> int:
     rng = np.random.default_rng(seed)
     cases = [("clustered", 320, 256), ("clustered", 240, 256), ("clustered", 16, 845),
              ("clustered", 1, 1), ("adversarial", 64, 256), ("adversarial", 16, 845),
-             ("adversarial", 8, 33)]
+             ("adversarial", 8, 33), ("edges", 20, 256), ("edges", 20, 100),
+             ("edges", 10, 845), ("edges", 10, 31), ("clustered", 37, 77)]
     worst = 0
     results = []
     for kind, r, k in cases:
         boxes, conf = make_nms_rows(rng, r, k, kind)
         res = compare_kernel(torch.from_numpy(boxes).cuda(), torch.from_numpy(conf).cuda(),
-                             timed=(kind == "clustered" and k == 256))
+                             timed=(kind == "clustered" and k >= 256))
         res["case"] = kind
         results.append(res)
         worst = max(worst, res["max_mismatch"])
     emit("kernels", name="nms_rows", thresh=NMS_THRESH, launches=nms_rows.launches, cases=results)
     check(worst == 0, f"nms_rows disagrees with nms_rows_reference in {worst} slots")
-    check(any(c["case"] == "adversarial" and 0 < c["kept"] < c["valid"] for c in results),
-          "the adversarial set suppressed nothing")
+    for kind in ("adversarial", "edges"):
+        check(any(c["case"] == kind and 0 < c["kept"] < c["valid"] for c in results),
+              f"the {kind} set suppressed nothing")
     return worst
 
 
@@ -384,10 +436,18 @@ def compare_bn_sums(x: torch.Tensor, seed: int) -> dict:
     c = x.shape[-1]
     copies0 = bn_sums.layout_copies
     s, q = bn_sums(x)
+    path = bn_sums.last_path  # which forward kernel the library launched
     s2, q2 = bn_sums(x)
     torch.cuda.synchronize()
     check(torch.equal(s, s2) and torch.equal(q, q2),
           f"bn_sums: two launches differ at {tuple(x.shape)} {x.dtype}")
+    # the wrapper sizes its grid for the path it expects from shape and
+    # alignment; the library chooses by the same rule and says what it chose
+    xc = x.contiguous()
+    want_path = "vector" if vector_width(c, x.element_size(), xc.data_ptr()) > 1 else "scalar"
+    check(path == want_path or not x.is_contiguous(),
+          f"bn_sums took the {path} path at {tuple(x.shape)} {x.dtype}, expected {want_path}")
+    check_workspace_reuse(xc, s, q)
     ps, pq = bn_sums_reference(x)
     xd = x.reshape(-1, c).double()
     s64, q64 = xd.sum(0), (xd * xd).sum(0)
@@ -403,7 +463,6 @@ def compare_bn_sums(x: torch.Tensor, seed: int) -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     dsum = torch.randn(c, generator=g, device=DEVICE)
     dsq = torch.randn(c, generator=g, device=DEVICE)
-    xc = x.contiguous()
     worst_dx = 0.0
     for ds, dq in ((dsum, dsq), (None, dsq), (dsum, None)):
         dx = bn_sums_backward(xc, ds, dq)
@@ -417,35 +476,85 @@ def compare_bn_sums(x: torch.Tensor, seed: int) -> dict:
         else:  # within one bfloat16 rounding step (2^-8 relative)
             check(bool(((dx.float() - want.float()).abs() <= want.float().abs() * 2.0 ** -8).all()),
                   f"bn_sums backward off by {diff} at {tuple(x.shape)} bfloat16")
-    return {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
-            "contiguous": x.is_contiguous(), "layout_copies": bn_sums.layout_copies - copies0,
+    return {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1], "path": path,
+            "aligned16": xc.data_ptr() % 16 == 0, "contiguous": x.is_contiguous(),
+            "layout_copies": bn_sums.layout_copies - copies0,
             "sum_abs_err": float((s.double() - s64).abs().max()),
             "sumsq_abs_err": float((q.double() - q64).abs().max()),
             "kernel_err_over_sum_abs": rel["kernel"], "plain_err_over_sum_abs": rel["plain"],
             "tolerance_over_sum_abs": SUM_TOL, "backward_max_abs_err": worst_dx}
 
 
+SIDE_STREAM = None  # made once: a second stream for the workspace checks
+
+
+def check_workspace_reuse(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> None:
+    """The forward's table of partials and its tickets are reused from call
+    to call. Many launches back to back on one stream, then the same call on
+    a second stream while the first is still busy, must all give the bits of
+    the first launch (s, q)."""
+    global SIDE_STREAM
+    if SIDE_STREAM is None:
+        SIDE_STREAM = torch.cuda.Stream()
+    repeats = 4 if x.numel() > 1 << 26 else 16
+    outs = [bn_mod._launch_forward(x) for _ in range(repeats)]
+    SIDE_STREAM.wait_stream(torch.cuda.current_stream())  # x is ready
+    with torch.cuda.stream(SIDE_STREAM):
+        side = [bn_mod._launch_forward(x) for _ in range(repeats)]
+    outs += [bn_mod._launch_forward(x) for _ in range(repeats)]  # beside the side stream's
+    torch.cuda.synchronize()
+    for tag, group in (("back to back", outs), ("on a second stream", side)):
+        check(all(torch.equal(a, s) and torch.equal(b, q) for a, b in group),
+              f"bn_sums: launches {tag} differ at {tuple(x.shape)} {x.dtype}")
+
+
+def kernels_of_one_call(fn) -> list:
+    """Names of the kernels, copies and memsets that one fn() puts on the
+    card, as the profiler's device trace lists them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages() if ev.device_type.name == "CUDA"
+            for _ in range(ev.count)]
+
+
 def time_bn_sums(x: torch.Tensor) -> dict:
     """Kernel, plain version and the one-call library yardstick, forward and
-    backward, on x (larger than the L2 cache at the main path's top shape)."""
+    backward, on x (larger than the L2 cache at the main path's top shape):
+    `*_ms` is the time of a call made from Python one after the other,
+    `*_card_ms` the time on the card."""
     m, c = x.shape
     dsum = torch.randn(c, device=DEVICE)
     dsq = torch.randn(c, device=DEVICE)
-    return {
-        "fwd_ms": cuda_ms(lambda: bn_mod._launch_forward(x), 20),
-        "fwd_plain_ms": cuda_ms(lambda: bn_sums_reference(x), 5),
-        "fwd_library_ms": cuda_ms(lambda: torch.var_mean(x, dim=0, correction=0), 10),
-        "fwd_bound_ms": bn_bound_ms(m, c, x.element_size(), False),
-        "bwd_ms": cuda_ms(lambda: bn_mod._launch_backward(x, dsum, dsq), 20),
-        "bwd_plain_ms": cuda_ms(lambda: bn_sums_backward_reference(x, dsum, dsq), 5),
-        "bwd_library_ms": cuda_ms(lambda: torch.addcmul(dsum.to(x.dtype), x, (2 * dsq).to(x.dtype)), 10),
-        "bwd_bound_ms": bn_bound_ms(m, c, x.element_size(), True),
+    runs = {
+        "fwd": lambda: bn_mod._launch_forward(x),
+        "fwd_plain": lambda: bn_sums_reference(x),
+        "fwd_library": lambda: torch.var_mean(x, dim=0, correction=0),
+        "bwd": lambda: bn_mod._launch_backward(x, dsum, dsq),
+        "bwd_plain": lambda: bn_sums_backward_reference(x, dsum, dsq),
+        "bwd_library": lambda: torch.addcmul(dsum.to(x.dtype), x, (2 * dsq).to(x.dtype)),
     }
+    out = {"fwd_bound_ms": bn_bound_ms(m, c, x.element_size(), False),
+           "bwd_bound_ms": bn_bound_ms(m, c, x.element_size(), True)}
+    for name, fn in runs.items():
+        repeats = 5 if name.endswith("plain") else 20
+        out[f"{name}_ms"] = cuda_ms(fn, repeats)
+        out[f"{name}_card_ms"] = card_ms(fn, repeats)
+    return out
 
 
-# the main path's extreme shapes at batch 64 / 15-way / 416 px, then awkward ones
-BN_MAIN_SHAPES = [(64 * 416 * 416, 32), (64 * 13 * 13, 1024), (15 * 6 * 6, 1024)]
-BN_AWKWARD_SHAPES = [(1, 1), (1000003, 30), (7, 1280), (4099, 3), (50000, 48)]
+# the main path's extreme shapes at batch 64 / 15-way / 416 px and a middle
+# one, then awkward ones: (50000, 48) and (777, 24) have C between V and 32*V
+# (vector path, a warp's lanes not all used), the others C % V != 0 in one or
+# both types (scalar path)
+BN_MAIN_SHAPES = [(64 * 416 * 416, 32), (64 * 13 * 13, 1024), (15 * 6 * 6, 1024),
+                  (64 * 52 * 52, 256)]
+BN_AWKWARD_SHAPES = [(1, 1), (1000003, 30), (7, 1280), (4099, 3), (50000, 48), (777, 24),
+                     (3, 36)]
 
 
 def phase_bn_kernels(seed: int) -> dict:
@@ -458,10 +567,22 @@ def phase_bn_kernels(seed: int) -> dict:
             x = make_activation(seed + i, m, c, dtype)
             res = compare_bn_sums(x, seed + i)
             check(res["layout_copies"] == 0, "a contiguous input was copied")
+            if (m, c) in ((64 * 13 * 13, 1024), (4099, 3)):  # one kernel a call, either path
+                names = kernels_of_one_call(lambda: bn_mod._launch_forward(x))
+                check(len(names) == 1 and f"bn_sums_{res['path'][:3]}" in names[0],
+                      f"one {res['path']} forward at {(m, c)} {name} put {names} on the card")
+                res["kernels_of_a_call"] = names
             if (m, c) in BN_MAIN_SHAPES:  # the smaller two fit the L2 cache, as behind a conv
                 times.setdefault(name, {})[f"{m}x{c}"] = time_bn_sums(x)
             cases.append(res)
             del x
+        # C % V == 0 but the base is one element past a 16-byte boundary:
+        # contiguous, no copy, and the scalar path
+        flat = make_activation(seed + 99, 1, 20000 * 64 + 1, dtype).reshape(-1)
+        res = compare_bn_sums(flat[1:].view(20000, 64), seed + 99)
+        check(res["path"] == "scalar" and res["layout_copies"] == 0 and not res["aligned16"],
+              f"the misaligned case ran {res}")
+        cases.append(res)
         # a view that is not row-major: the wrapper copies it, and counts it
         wide = make_activation(seed + 100, 3001, 96, dtype)
         res = compare_bn_sums(wide[:, 16:80], seed + 100)
@@ -476,6 +597,10 @@ def phase_bn_kernels(seed: int) -> dict:
         (dx,) = torch.autograd.grad((a * s).sum() + (b * q).sum(), x4)
         want = bn_sums_backward_reference(x4.detach(), a, b)
         check(torch.equal(dx, want), "bn_sums through autograd differs from the plain backward")
+    for want in ("vector", "scalar"):
+        check(any(c["path"] == want for c in cases), f"no case reached the {want} path")
+    check(all(c["path"] == "vector" for c in cases if tuple(c["shape"]) in BN_MAIN_SHAPES),
+          "a main shape did not take the vector path")
     emit("kernels", name="bn_sums", tolerance_over_sum_abs=SUM_TOL, cases=cases, times=times)
     return {"cases": cases, "times": times}
 
@@ -690,10 +815,14 @@ class KernelClock:
 
     def __init__(self):
         self.events = []
+        self.forward_shapes = []  # (M, C) of every forward launch, in order
         self._fwd, self._bwd = bn_mod._launch_forward, bn_mod._launch_backward
 
     def _timed(self, fn):
         def run(*args):
+            if fn is self._fwd:
+                c = args[0].shape[-1]
+                self.forward_shapes.append((args[0].numel() // c, c))
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             out = fn(*args)
@@ -836,7 +965,7 @@ def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dic
             "peak_memory_bytes": peak, "seconds_timed": seconds,
             "images_per_s": TRAIN_TIMED_STEPS * batch_size / seconds,
             "step_ms_events": step_ms, "bn_kernels_ms_in_step": kernels_ms,
-            "bn_kernels_share": kernels_ms / step_ms}
+            "bn_kernels_share": kernels_ms / step_ms, "bn_layer_shapes": clock.forward_shapes}
 
 
 def phase_train(seed: int) -> dict:
@@ -849,11 +978,45 @@ def phase_train(seed: int) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         report = train_variant(spec, sched, SEEN, dtype, seed)
         emit("train", **report)
+        total["bn_layer_shapes"] = report["bn_layer_shapes"]
         total["fwd"] += report["bn_fwd_launches"]
         total["bwd"] += report["bn_bwd_launches"]
         total["layout_copies"] += report["layout_copies"]
         torch.cuda.empty_cache()
     return total
+
+
+def phase_bn_step(shapes: list, seed: int) -> None:
+    """The `bn_sums` kernels over the BN layers of one training step, one
+    launch at a time outside the step: for each type the sum over the layers
+    of kernel time on the card and of the byte bound, forward and backward.
+    The gap between the two sums is what the kernels leave on the table each
+    step.
+    Each distinct shape is timed once (inputs of up to 50 MB sit in the L2
+    cache, as they do behind the convolution that wrote them)."""
+    check(len(shapes) == BN_LAYERS, f"{len(shapes)} BN layers in a step, not {BN_LAYERS}")
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        per_shape = {}
+        for m, c in sorted(set(map(tuple, shapes))):
+            x = make_activation(seed, m, c, dtype)
+            dsum, dsq = torch.randn(c, device=DEVICE), torch.randn(c, device=DEVICE)
+            per_shape[(m, c)] = {
+                "shape": [m, c], "layers": sum(1 for sh in shapes if tuple(sh) == (m, c)),
+                "fwd_card_ms": card_ms(lambda: bn_mod._launch_forward(x), 20),
+                "bwd_card_ms": card_ms(lambda: bn_mod._launch_backward(x, dsum, dsq), 20),
+                "fwd_bound_ms": bn_bound_ms(m, c, itemsize, False),
+                "bwd_bound_ms": bn_bound_ms(m, c, itemsize, True)}
+            del x
+        total = {k: sum(v[k] * v["layers"] for v in per_shape.values())
+                 for k in ("fwd_card_ms", "fwd_bound_ms", "bwd_card_ms", "bwd_bound_ms")}
+        total["fwd_share_of_bound"] = total["fwd_bound_ms"] / total["fwd_card_ms"]
+        total["bwd_share_of_bound"] = total["bwd_bound_ms"] / total["bwd_card_ms"]
+        report[name] = {**total, "values": sum(m * c for m, c in shapes),
+                        "shapes": list(per_shape.values())}
+    emit("bn_sums_step", layers=len(shapes), **report)
 
 
 def kernels_line(launches: int, worst: int, rows, bn: dict, train: dict) -> dict:
@@ -871,6 +1034,7 @@ def kernels_line(launches: int, worst: int, rows, bn: dict, train: dict) -> dict
         "launches": launches,
         "max_abs_err": float(max(worst, res["max_mismatch"])),
         "ms": res["kernel_ms"],
+        "card_ms": res["card_ms"],
         "plain_ms": res["plain_ms"],
         "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"],
@@ -885,6 +1049,7 @@ def kernels_line(launches: int, worst: int, rows, bn: dict, train: dict) -> dict
         "bytes_bound_ms": res["bytes_bound_ms"],
         "flops_bound_ms": res["flops_bound_ms"],
         "chain_bound_ms": res["chain_bound_ms"],
+        "share_of_bound": res["share_of_bound"],
     }, *bn_kernel_entries(bn, train)]}
 
 
@@ -907,10 +1072,12 @@ def bn_kernel_entries(bn: dict, train: dict) -> list:
             "launches": train[way],
             "max_abs_err": max(c[err_key] for c in bn["cases"]),
             "ms": f32[f"{way}_ms"],
+            "card_ms": f32[f"{way}_card_ms"],
             "plain_ms": f32[f"{way}_plain_ms"],
             "bound_ms": f32[f"{way}_bound_ms"],
             "bound_by": "bytes",
             "library_ms": f32[f"{way}_library_ms"],
+            "library_card_ms": f32[f"{way}_library_card_ms"],
             "library_call": lib,
             "shape": shape,
             "dtype": "float32",
@@ -956,6 +1123,7 @@ def main() -> int:
         trained = phase_train(args.seed)
         check(trained["fwd"] > 0 and trained["bwd"] > 0,
               "the training path never launched the bn_sums kernels")
+        phase_bn_step(trained["bn_layer_shapes"], args.seed)
     if set(phases) != set(PHASES):
         print(f"ran only {phases}: no result line", file=sys.stderr)
         return 2

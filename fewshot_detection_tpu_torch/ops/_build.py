@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -92,3 +94,17 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(build_library(name))
     return _loaded[name]
+
+
+def launch_on(device: torch.device, call) -> int:
+    """`call(stream)` with `device` current and `stream` its current stream's
+    handle; returns what `call` returns (the launch's error code). The device
+    is switched only when it is not the current one already, and the handle
+    is read without building a `torch.cuda.Stream`: either costs the host
+    more time than a small kernel takes on the card."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return call(torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return call(torch._C._cuda_getCurrentRawStream(index))

@@ -9,10 +9,27 @@ first use and loads it with `ctypes`.
 
 Bound on an H100: bytes. The forward reads the (M, C) activation once
 (M*C*itemsize) and writes 2*C floats; the backward reads it once and writes
-as much. The design is two forward kernels, per-block partial sums into a
-(G, C) table and a fold of that table, both in a fixed order, so the result
-does not change from run to run; adjacent threads read adjacent channels,
-and for C < 32 a warp takes several whole rows.
+as much. What holds a forward back on this card is the size of its loads and
+the host's cost per call, so the design is: 16-byte loads (a thread owns 4
+float32 or 8 bfloat16 adjacent channels, `_VEC_LANES` neighbouring threads
+cover a channel tile, the rest of the warp takes further rows), four loads a
+thread in flight, float32 sums in a fixed order, and ONE launch a call: every
+block writes its row of a (G, 2, C) table of partials and draws a ticket from
+an integer counter, and the block that draws the last ticket of its channel
+tile folds the table. No float atomics, so the result does not change from
+run to run. That vector path needs C % (16 / itemsize) == 0 and a 16-byte
+aligned base; any other input takes the scalar path of the same file (one
+value a thread), chosen by the library on shape and alignment alone and
+reported in `bn_sums.last_path`.
+
+The table and the tickets live in a workspace that is allocated once per
+device and stream and then reused; `out` is the only allocation of a call.
+Reuse is safe because launches on one stream run one after the other: the
+next launch writes the table only after this launch's fold has read it, and
+the fold leaves the tickets at 0. A call on a second stream gets a workspace
+of its own (keyed by the stream's handle), so calls on two streams never
+share one and need no ordering between them. Workspaces are small (half a
+megabyte) and are kept for the life of the process.
 
 The kernels take the activation as a row-major (M, C) array, i.e. NHWC
 memory. A tensor that is not contiguous is copied first, and the copy is
@@ -30,15 +47,27 @@ import ctypes
 
 import torch
 
-from ._build import load_library
+from ._build import launch_on, load_library
 
 # threads of a block along the channels and along the rows (csrc/bn_sums.cu)
 _TX, _TY = 32, 8
-# blocks the card holds at once: 132 SMs x 8 blocks of 256 threads
-_RESIDENT_BLOCKS = 132 * 8
+# scalar geometry (backward, scalar forward): 132 SMs x 8 blocks of 256 threads
+_SCALAR_RESIDENT = 132 * 8
+# vector forward: 132 SMs x 4 blocks (up to 64 registers a thread), and a
+# pass of a block is 4 loads a thread
+_VECTOR_RESIDENT = 132 * 4
+_UNROLL = 4
+# threads across one channel tile on the vector path (csrc/bn_sums.cu:LANES):
+# 8 x 16 bytes is one 128-byte line of a row; narrow tiles keep the table of
+# partials that the last block of a tile folds small
+_VEC_LANES = 8
 _DTYPES = (torch.float32, torch.bfloat16)
+# ticket counters at the head of a workspace, and floats of partials after them
+_TICKET_SLOTS = 64
+_WORKSPACE_FLOATS = 1 << 17
 
 _fns = None
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
 
 
 def _kernels():
@@ -49,8 +78,9 @@ def _kernels():
         lib = load_library("bn_sums")
         fwd, bwd = lib.fsd_bn_sums_fwd, lib.fsd_bn_sums_bwd
         fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ]
         bwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -61,14 +91,42 @@ def _kernels():
     return _fns
 
 
-def row_blocks(m: int, c: int) -> int:
+def vector_width(c: int, itemsize: int, address: int = 0) -> int:
+    """Channels a thread of the forward owns: 16 / itemsize on the vector
+    path (C a multiple of that, base 16-byte aligned), else 1. The library
+    applies the same rule when it picks its kernel."""
+    v = 16 // itemsize
+    return v if c % v == 0 and address % 16 == 0 else 1
+
+
+def row_blocks(m: int, c: int, vec: int = 1) -> int:
     """Blocks along the rows (the kernels' grid.y, and the rows of the
-    partials table): enough to fill the card once, never more than there are
-    rows to hand out."""
-    fold = _TX // c if c < _TX else 1
-    tiles = -(-c // _TX)
-    by_rows = -(-m // (_TY * fold))
-    return max(1, min(by_rows, -(-_RESIDENT_BLOCKS // tiles), 65535))
+    forward's table of partials): enough to fill the card once, never more
+    than there are rows to hand out. `vec` is the channels a thread owns: 1
+    for the backward and the scalar forward, `vector_width` for the vector
+    forward, whose blocks take `_UNROLL` loads a thread in one pass."""
+    cv = c // vec
+    cw = min(cv, _TX if vec == 1 else _VEC_LANES)
+    fold = _TX // cw
+    tiles = -(-cv // cw)
+    rows = _TY * fold * (1 if vec == 1 else _UNROLL)
+    resident = _SCALAR_RESIDENT if vec == 1 else _VECTOR_RESIDENT
+    return max(1, min(-(-m // rows), -(-resident // tiles), 65535))
+
+
+def _workspace(device: torch.device, stream: int, c: int, floats: int) -> tuple[torch.Tensor, int]:
+    """(this device's and stream's workspace, its ticket slots): zeroed int32
+    storage, tickets first, made on first use and made anew only when a call
+    needs more than it holds. Called with `device` current and `stream` its
+    current stream, so the zeroing runs on that stream too."""
+    slots = max(_TICKET_SLOTS, -(-(-(-c // _TX)) // 4) * 4)
+    key = (device.index, stream)
+    held = _workspaces.get(key)
+    if held is None or held[1] < slots or held[0].numel() < slots + floats:
+        size = slots + max(floats, _WORKSPACE_FLOATS)
+        held = (torch.zeros(size, dtype=torch.int32, device=device), slots)
+        _workspaces[key] = held
+    return held
 
 
 def _check(x: torch.Tensor) -> tuple[int, int]:
@@ -88,16 +146,20 @@ def _launch_forward(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return out[0], out[1]
     if x.data_ptr() % x.element_size():
         raise ValueError("bn_sums: misaligned tensor")
-    g = row_blocks(m, c)
-    partials = torch.empty((2, g, c), dtype=torch.float32, device=x.device)
+    g = row_blocks(m, c, vector_width(c, x.element_size(), x.data_ptr()))
     fwd, _ = _kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fwd(x.data_ptr(), partials.data_ptr(), out.data_ptr(), m, c, g,
-                  int(x.dtype == torch.bfloat16), stream)
+    path = ctypes.c_int(-1)
+
+    def call(stream: int) -> int:
+        ws, slots = _workspace(x.device, stream, c, 2 * g * c)
+        return fwd(x.data_ptr(), ws.data_ptr(), slots, out.data_ptr(), m, c, g,
+                   int(x.dtype == torch.bfloat16), stream, ctypes.byref(path))
+
+    err = launch_on(x.device, call)
     if err != 0:
         raise RuntimeError(f"bn_sums: forward launch failed with CUDA error {err}")
     bn_sums.launches += 1
+    bn_sums.last_path = ("scalar", "vector")[path.value]
     return out[0], out[1]
 
 
@@ -109,10 +171,9 @@ def _launch_backward(x: torch.Tensor, dsum: torch.Tensor, dsq: torch.Tensor) -> 
     dsum = dsum.to(torch.float32).contiguous()
     dsq = dsq.to(torch.float32).contiguous()
     _, bwd = _kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = bwd(x.data_ptr(), dsum.data_ptr(), dsq.data_ptr(), dx.data_ptr(), m, c,
-                  row_blocks(m, c), int(x.dtype == torch.bfloat16), stream)
+    err = launch_on(x.device, lambda stream: bwd(
+        x.data_ptr(), dsum.data_ptr(), dsq.data_ptr(), dx.data_ptr(), m, c,
+        row_blocks(m, c), int(x.dtype == torch.bfloat16), stream))
     if err != 0:
         raise RuntimeError(f"bn_sums: backward launch failed with CUDA error {err}")
     bn_sums.backward_launches += 1
@@ -183,9 +244,9 @@ def bn_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     x (..., C) float32 or bfloat16. A CUDA tensor goes to the kernels (built
     at first use; any failure to build, load or launch raises); a CPU tensor
     goes to the plain versions. `bn_sums.launches` and
-    `bn_sums.backward_launches` count kernel launches (a forward launch is
-    the pair partial sums + fold); `bn_sums.layout_copies` counts inputs
-    that had to be copied into row-major order first."""
+    `bn_sums.backward_launches` count kernel launches;
+    `bn_sums.layout_copies` counts inputs that had to be copied into
+    row-major order first."""
     _check(x)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bn_sums: unsupported device {x.device}")
@@ -198,3 +259,4 @@ def bn_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 bn_sums.launches = 0
 bn_sums.backward_launches = 0
 bn_sums.layout_copies = 0
+bn_sums.last_path = None

@@ -9,10 +9,18 @@ use into `_build/` inside the package and loads it with `ctypes`.
 Bound on an H100: the function reads R*K*20 bytes and writes R*K (a few
 hundred nanoseconds at the card's memory rate), and the pairwise IoUs are
 less float32 arithmetic than that; the time actually follows the chain of
-dependent steps, one per kept candidate of the longest row. The design spends one thread block per
-row, keeps the row's boxes and confidences in shared memory, computes IoUs
-on the fly instead of reading an (R, K, K) matrix from device memory, ends
-the chain at the last live candidate and skips suppressed ones.
+greedy NMS, in which a candidate is settled only after every candidate
+ranked before it, and a row lives in one block on one SM. A kernel that
+takes one block-wide barrier per candidate, with the IoU's division inside
+each step, waits most of its time. The design spends one thread block per
+row, keeps the per-box terms of the IoU in shared memory (IoUs on the fly,
+never an (R, K, K) matrix in device memory), and works in groups of 32
+candidates: before the chain starts, all threads compute every group's own
+triangle of overlaps as 32-bit words; then, per group, one warp settles the
+group's members in registers with ballots, and all threads drop the later
+candidates that a KEPT member overlaps. Two barriers per 32 candidates, no
+arithmetic in the settling warp's way, no division for a pair whose boxes do
+not meet, and the loop ends at the last live candidate.
 
 `nms_rows_reference` is the plain PyTorch version of the same function (the
 loop of the JAX package's `nms_jax`, over all rows at once). It serves CPU
@@ -26,11 +34,12 @@ import ctypes
 
 import torch
 
-from ._build import load_library
+from ._build import launch_on, load_library
 from .boxes import iou_xywh_t
 
-# K*(16+4) bytes of shared memory per row must fit one block's 227 KB
-MAX_K = 11000
+# K*(32+4+4) bytes of shared memory per row (edges, sizes, confidence, word)
+# must fit one block's 227 KB; 845 is every anchor of a 13x13 grid
+MAX_K = 5600
 
 _fn = None
 
@@ -89,10 +98,8 @@ def nms_rows(boxes: torch.Tensor, dsel: torch.Tensor, thresh: float) -> torch.Te
     if r == 0 or k == 0:
         return keep
     fn = _kernel()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), dsel.data_ptr(), keep.data_ptr(),
-                 r, k, float(thresh), stream)
+    err = launch_on(boxes.device, lambda stream: fn(
+        boxes.data_ptr(), dsel.data_ptr(), keep.data_ptr(), r, k, float(thresh), stream))
     if err != 0:
         raise RuntimeError(f"nms_rows: kernel launch failed with CUDA error {err}")
     nms_rows.launches += 1

@@ -18,11 +18,13 @@ from fewshot_detection_tpu.ops import layers as jl
 from fewshot_detection_tpu.ops.bn_pallas import _bn_sums_impl, _sums_reference
 from fewshot_detection_tpu.ops.bn_pallas import bn_sums as j_bn_sums
 from fewshot_detection_tpu_torch.ops import layers as tl
+from fewshot_detection_tpu_torch.ops import bn_sums as bn_mod
 from fewshot_detection_tpu_torch.ops.bn_sums import (
     bn_sums,
     bn_sums_backward_reference,
     bn_sums_reference,
     row_blocks,
+    vector_width,
 )
 
 from torch_port_util import t
@@ -133,6 +135,147 @@ def test_bn_sums_counts_layout_copies_and_launches_nothing_on_cpu():
 ])
 def test_row_blocks_fill_the_card_once(m, c, want):
     assert row_blocks(m, c) == want
+
+
+@pytest.mark.parametrize("m,c,vec,want", [
+    # the vector forward: a warp is 8 lanes x 4 rows (or more rows when a row
+    # has fewer than 8 vectors), a pass of a block 4 loads a thread, and
+    # 132 x 4 blocks fill the card
+    (64 * 416 * 416, 32, 4, 528),  # float32: 8 vectors a row, one channel tile
+    (64 * 416 * 416, 32, 8, 528),  # bfloat16: 4 vectors a row, 8 rows a warp
+    (64 * 13 * 13, 1024, 4, 17),   # 32 channel tiles x 17 row blocks
+    (64 * 13 * 13, 1024, 8, 33),   # 16 channel tiles x 33 row blocks
+    (15 * 6 * 6, 1024, 8, 5),      # 540 rows, 128 a pass
+    (64 * 52 * 52, 256, 8, 132),   # 4 channel tiles
+    (7, 1280, 4, 1),
+    (1, 8, 8, 1),
+    (50000, 48, 4, 264),           # 12 vectors a row: 2 tiles, the second half full
+    (777, 24, 8, 3),               # 3 vectors a row: 10 rows a warp, 2 lanes idle
+])
+def test_row_blocks_of_the_vector_forward(m, c, vec, want):
+    assert row_blocks(m, c, vec) == want
+
+
+@pytest.mark.parametrize("c,itemsize,address,want", [
+    (32, 4, 0, 4), (32, 2, 0, 8), (1024, 2, 512, 8),
+    (30, 4, 0, 1), (36, 2, 0, 1), (36, 4, 0, 4), (3, 4, 0, 1),
+    (64, 4, 4, 1), (64, 2, 2, 1), (64, 2, 16, 8),  # the base's alignment decides too
+])
+def test_vector_width_follows_shape_and_alignment(c, itemsize, address, want):
+    assert vector_width(c, itemsize, address) == want
+
+
+def _vector_reads(m, c, vec, g, lanes):
+    """Mirror of csrc/bn_sums.cu:bn_sums_vec_kernel's lane geometry: how
+    often every (row, 16-byte vector) of an (m, c) activation is read by a
+    grid of (channel tiles, g) blocks of 256 threads. Returns an (m, c // vec)
+    array of counts."""
+    cv = c // vec
+    cw = min(cv, lanes)
+    fold = 32 // cw
+    tiles = -(-cv // cw)
+    tid = np.arange(256)
+    lane, warp = tid & 31, tid >> 5
+    sub = lane // cw
+    rows_u = 8 * fold
+    rows_pass = 4 * rows_u
+    r_in = warp * fold + sub
+    reads = []
+    for bx in range(tiles):
+        v = bx * cw + (lane - sub * cw)
+        active = (sub < fold) & (v < cv)
+        # first rows of every pass of every block along the rows, at once
+        r0 = np.arange(0, m, rows_pass)  # pass p belongs to block p % g
+        assert len({int(p) % g for p in range(len(r0))}) == min(g, len(r0))
+        rows = r0[:, None, None] + r_in[None, :, None] + (np.arange(4) * rows_u)[None, None, :]
+        ok = active[None, :, None] & (rows < m)
+        flat = rows * cv + v[None, :, None]
+        reads.append(flat[ok])
+    return np.bincount(np.concatenate(reads), minlength=m * cv).reshape(m, cv)
+
+
+@pytest.mark.parametrize("m,c,itemsize", [
+    (4 * 416 * 416, 32, 4),   # the top shape cut to 4 images: the same 528 row
+    (4 * 416 * 416, 32, 2),   # blocks and tile, a sixteenth of the passes
+    (64 * 13 * 13, 1024, 4), (64 * 13 * 13, 1024, 2),
+    (15 * 6 * 6, 1024, 4), (15 * 6 * 6, 1024, 2),
+    (64 * 52 * 52, 256, 2),
+    (7, 1280, 4), (50000, 48, 4), (50000, 48, 2), (777, 24, 4), (777, 24, 2), (3, 36, 4),
+    (1, 8, 2), (129, 64, 2), (128, 64, 2), (127, 64, 2),  # around one pass of a block
+])
+def test_vector_geometry_reads_every_value_once(m, c, itemsize):
+    vec = vector_width(c, itemsize)
+    assert vec == 16 // itemsize
+    g = row_blocks(m, c, vec)
+    counts = _vector_reads(m, c, vec, g, bn_mod._VEC_LANES)
+    assert counts.shape == (m, c // vec)
+    assert counts.min() == 1 and counts.max() == 1
+    # the grid: no more row blocks than passes to hand out, tickets for every tile
+    assert 1 <= g <= -(-m // (4 * 8 * (32 // min(c // vec, bn_mod._VEC_LANES))))
+    assert bn_mod._TICKET_SLOTS >= -(-c // 32) or c > 2048
+
+
+def test_wrapper_and_source_agree_on_the_geometry():
+    """The tile width, the block and the loads a pass are constants of
+    csrc/bn_sums.cu; `row_blocks` mirrors them. The forward's interface takes
+    no geometry but the row blocks."""
+    import re
+
+    from fewshot_detection_tpu_torch.ops import _build
+
+    with open(_build.source_path("bn_sums")) as f:
+        src = f.read()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (consts["TX"], consts["TY"], consts["LANES"]) == (bn_mod._TX, bn_mod._TY, bn_mod._VEC_LANES)
+    assert "__launch_bounds__(THREADS, 4)" in src and bn_mod._VECTOR_RESIDENT == 132 * 4
+    (args,) = re.findall(r'extern "C" int fsd_bn_sums_fwd\(([^)]*)\)', src)
+    names = [a.split()[-1].lstrip("*") for a in args.split(",")]
+    assert names == ["x", "workspace", "ticket_slots", "out", "M", "C", "G", "is_bf16", "stream", "path"]
+
+
+@pytest.mark.parametrize("c,itemsize", [(32, 4), (32, 2), (1024, 4), (1024, 2), (2048, 4), (48, 4),
+                                        (24, 2), (30, 4), (3, 4), (1280, 2)])
+def test_ticket_slots_cover_every_channel_tile(c, itemsize):
+    """The library refuses a workspace with fewer tickets than channel tiles;
+    the wrapper's count (a multiple of 4, at least ceil(C / 32)) covers both
+    paths' tiles."""
+    _, slots = bn_mod._workspace(torch.device("cpu"), -1, c, 16)
+    bn_mod._workspaces.pop((None, -1))
+    vec = vector_width(c, itemsize)
+    cv = c // vec
+    tiles = -(-cv // min(cv, bn_mod._VEC_LANES)) if vec > 1 else -(-c // bn_mod._TX)
+    assert slots % 4 == 0 and slots >= tiles
+
+
+def test_workspace_is_reused_per_stream_and_grows_on_demand():
+    """The table of partials and the tickets: one zeroed buffer a (device,
+    stream), handed out again while it is large enough, replaced by a larger
+    zeroed one when a call needs more, and never shared between streams."""
+    dev = torch.device("cpu")
+    saved = dict(bn_mod._workspaces)
+    bn_mod._workspaces.clear()
+    try:
+        ws, slots = bn_mod._workspace(dev, 7, 1024, 2 * 33 * 1024)
+        assert ws.dtype == torch.int32 and not ws.any()
+        assert slots % 4 == 0 and slots >= 1024 // 32
+        assert ws.numel() >= slots + 2 * 33 * 1024
+        again, _ = bn_mod._workspace(dev, 7, 32, 2 * 528 * 32)
+        assert again is ws  # the main shapes all fit the first one
+        other, _ = bn_mod._workspace(dev, 8, 32, 2 * 528 * 32)
+        assert other is not ws  # a second stream has its own
+        big, big_slots = bn_mod._workspace(dev, 7, 4096, 1 << 20)
+        assert big is not ws and big_slots >= 128 and big.numel() >= big_slots + (1 << 20)
+        assert not big.any()
+        assert bn_mod._workspace(dev, 7, 32, 10)[0] is big
+        # every main shape's table fits the default size, so training never regrows
+        for m, c in [(64 * 416 * 416, 32), (64 * 208 * 208, 64), (64 * 52 * 52, 256),
+                     (64 * 13 * 13, 1024), (15 * 6 * 6, 1024)]:
+            for itemsize in (4, 2):
+                g = row_blocks(m, c, vector_width(c, itemsize))
+                assert 2 * g * c <= bn_mod._WORKSPACE_FLOATS
+    finally:
+        bn_mod._workspaces.clear()
+        bn_mod._workspaces.update(saved)
 
 
 def _bn(rng, c):
