@@ -48,6 +48,21 @@ phases, each printing JSON lines:
            share of a step spent in the `bn_sums` kernels; then `bn_sums_step`,
            the kernels' time and byte bound summed over the 29 BN layers of
            one step, forward and backward, both types
+  plain_serve  the plain YOLOv2 family at full width (cfg/yolo-voc.cfg,
+           Darknet-19 at 416x416, 20 classes) from seeded weights written to a
+           .weights file and read back through PlainDetector (BN folded): the
+           plain sweep at batch 16 with a candidate buffer of 845 (every anchor:
+           the random head passes nearly all of them at the sweep's threshold)
+           in float32 and bfloat16, one NMS launch a batch; one batch redone on
+           the host path box for box; one batch at the default buffer of 256,
+           where a batch whose rows overflow goes to the host path; the detect
+           flow of detect_torch.py (serving thresholds, a buffer of every
+           anchor) with a keep mask bit-equal to the plain version's and the
+           host path's boxes
+  plain_train  PlainTrainer at the cfg's batch 64, 416 px, one group, as
+           train_plain_cli derives lr and weight decay, from the same seeded
+           weights on images painted from the seed: as `train`, with 22 + 22
+           `bn_sums` launches a step; then `bn_sums_step` for its 22 layers
 
 `--phases` runs a subset (for finding faults); the result line is printed
 only when every phase ran. Then the card's name and power limit, one JSON
@@ -61,6 +76,7 @@ not printed.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -72,20 +88,24 @@ import numpy as np
 import torch
 
 from fewshot_detection_tpu_torch.cli.train_meta_cli import make_episode_batch, schedule_from_cfg
+from fewshot_detection_tpu_torch.cli.train_plain_cli import (
+    make_plain_batch,
+    plain_schedule_from_cfg,
+)
 from fewshot_detection_tpu_torch.config import parse_cfg
 from fewshot_detection_tpu_torch.config.settings import VOC_CLASSES
 from fewshot_detection_tpu_torch.eval import valid
-from fewshot_detection_tpu_torch.eval.detector import MetaDetector
+from fewshot_detection_tpu_torch.eval.detector import MetaDetector, PlainDetector
 from fewshot_detection_tpu_torch.eval.device_pipeline import (
-    MetaDevicePipeline,
     _decode_rank,
     _nms_and_rows,
     _rows_to_eval_boxes,
 )
 from fewshot_detection_tpu_torch.models.convert import from_jax_params, require_grads
+from fewshot_detection_tpu_torch.models.darknet import init_params
 from fewshot_detection_tpu_torch.models.meta import MetaSpec, init_meta_params
 from fewshot_detection_tpu_torch.models.spec import build_spec
-from fewshot_detection_tpu_torch.models.weights_io import load_weights_bf16_gz
+from fewshot_detection_tpu_torch.models.weights_io import load_weights_bf16_gz, save_weights
 from fewshot_detection_tpu_torch.ops import _build, bn_sums as bn_mod, layers, nms_device
 from fewshot_detection_tpu_torch.ops.bn_sums import (
     vector_width,
@@ -94,11 +114,13 @@ from fewshot_detection_tpu_torch.ops.bn_sums import (
     bn_sums_backward_reference,
     bn_sums_reference,
 )
-from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes_v2, nms
+from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes, nms
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
-from fewshot_detection_tpu_torch.train import MetaTrainer, init_momentum
+from fewshot_detection_tpu_torch.train import MetaTrainer, PlainTrainer, init_momentum
 from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path
 from fewshot_detection_tpu_torch.utils import format_loss_line
+
+import detect_torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DARKNET_CFG = os.path.join(REPO, "cfg", "darknet_dynamic.cfg")
@@ -117,6 +139,17 @@ TRAIN_WARMUP_STEPS = 2
 TRAIN_TIMED_STEPS = 5
 # training BatchNorms of the two cfgs: 22 in the detector, 7 in the learnet
 BN_LAYERS = 29
+# the plain family: cfg/yolo-voc.cfg (Darknet-19, 416 px, 20 classes, 22 BN)
+PLAIN_CFG = os.path.join(REPO, "cfg", "yolo-voc.cfg")
+PLAIN_BN_LAYERS = 22
+PLAIN_SEEN = 640  # written into the seeded weights' header, read back
+# the plain sweep's candidate buffer: every anchor of the 13x13x5 grid. The
+# random head passes nearly every anchor at the sweep's threshold 0.005
+# (det about 0.5, the top class at least 1/20), more than the default 256.
+PLAIN_TOP_K = 845
+PLAIN_PICKS = {"conv0.w": (0, "w"), "conv0.gamma": (0, "bn", "gamma"),
+               "conv13.w": (13, "w"), "conv29.beta": (29, "bn", "beta"), "head.w": (30, "w"),
+               "head.b": (30, "b")}
 # |sum - float64 sum| <= SUM_TOL * sum|x| per channel: float32 rounds each add
 # to 2^-24 relative, and the longest chain of adds in the kernel (a thread's
 # rows / 4, then 8 warps, then the blocks / 8, then 8) and in PyTorch's own
@@ -605,16 +638,16 @@ def phase_bn_kernels(seed: int) -> dict:
     return {"cases": cases, "times": times}
 
 
-def sweep(m, detset, codes, n_cls, classes, outdir, tag):
-    """One fixed-code sweep through valid._meta_sweep, the main path. The
-    kernel's launch count is set to 0 just before and read just after, so it
-    holds the sweep's own launches and none of the comparisons'."""
+def sweep(run, n_images: int, classes, outdir: str, tag: str, top_k: int) -> dict:
+    """One sweep of the main path: `run(prefix, stats)` is valid._meta_sweep
+    or valid._plain_sweep over n_images. The kernel's launch count is set to
+    0 just before and read just after, so it holds the sweep's own launches
+    and none of the comparisons'."""
     stats: dict = {}
     torch.cuda.synchronize()
     nms_rows.launches = 0  # the count is read right after the sweep, below
     t0 = time.perf_counter()
-    prefix = valid._meta_sweep(m, detset, os.path.join(outdir, tag), "comp4_det_test_",
-                               codes, n_cls, classes, BATCH, stats=stats)
+    prefix = run(os.path.join(outdir, tag), stats)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = nms_rows.launches
@@ -626,61 +659,72 @@ def sweep(m, detset, codes, n_cls, classes, outdir, tag):
         check(all(np.isfinite([float(v) for v in r.split()[1:]]).all() for r in rows),
               f"non-finite result row for {name}")
         lines[name] = len(rows)
-    check(stats["batches"] == len(detset.lines) // BATCH, "sweep saw another number of batches")
+    check(stats["batches"] == n_images // BATCH, "sweep saw another number of batches")
     # a batch whose rows overflow the candidate buffer goes to the host path
     # by protocol and launches nothing; every other batch is one launch
-    check(launches == stats["device_batches"] and launches > 0,
+    check(launches == stats["device_batches"],
           f"{launches} kernel launches for {stats['device_batches']} device batches")
+    check((stats["device_batches"] == stats["batches"]) == (stats["max_candidates"] <= top_k),
+          f"{stats['device_batches']} of {stats['batches']} batches on the device with "
+          f"{stats['max_candidates']} candidates in a row and a buffer of {top_k}")
     check(sum(lines.values()) > 0, "every result file is empty")
-    return {"n_cls": n_cls, "batches": stats["batches"],
+    return {"batches": stats["batches"],
             "device_batches": stats["device_batches"], "nms_launches": launches,
-            "max_candidates_per_row": stats["max_candidates"], "top_k": TOP_K,
-            "images": len(detset.lines), "seconds": seconds,
-            "images_per_s": len(detset.lines) / seconds,
+            "max_candidates_per_row": stats["max_candidates"], "top_k": top_k,
+            "images": n_images, "seconds": seconds,
+            "images_per_s": n_images / seconds,
             "result_rows": sum(lines.values()),
             "non_empty_files": sum(1 for v in lines.values() if v)}
 
 
-def host_parity_and_stages(m, images, codes, n_cls) -> tuple[dict, tuple]:
-    """One batch: device pipeline against the host path box for box, then
-    milliseconds per stage. Returns (report, (bsel, dsel) of that batch)."""
-    region = m.region
-    output = m.detect(images, codes)
-    check(tuple(output.shape) == (BATCH * n_cls, 13, 13, 30), f"head output {tuple(output.shape)}")
+def one_batch(forward, pipe, host_boxes, shape: tuple) -> tuple[dict, tuple]:
+    """One sweep batch of either head: `pipe.eval_boxes` against the host
+    path (`host_boxes(output)`: host decode + nms) box for box, then
+    milliseconds per stage. The plain head's boxes hold (cls_conf, cls_id)
+    pairs from box[5] on, compared in full; the meta head's box[6] is the
+    class copy's position, which the host path does not hold, so its boxes
+    are compared up to box[5]. Returns (report, (bsel, dsel) of that batch)."""
+    output = forward()
+    check(tuple(output.shape) == shape, f"head output {tuple(output.shape)}")
     check(bool(torch.isfinite(output).all()), "head output is not finite")
-    pipe = MetaDevicePipeline(region, n_cls, conf_thresh=valid.CONF_THRESH,
-                              nms_thresh=NMS_THRESH, top_k=TOP_K)
     dev = pipe.eval_boxes(output)
     check(dev is not None, "the candidate buffer overflowed on the parity batch")
-    host = get_region_boxes_v2(output, n_cls, valid.CONF_THRESH, region.num_classes,
-                               region.anchor_wh, only_objectness=False, validation=True)
-    host = [nms(bl, NMS_THRESH) for bl in host]
-    n_boxes, worst = 0, 0.0
+    host = host_boxes(output)
+    pairs = pipe.n_cls is None
+    n_boxes, n_pairs, worst = 0, 0, 0.0
     for r, (d, h) in enumerate(zip(dev, host)):
         check(len(d) == len(h), f"row {r}: device kept {len(d)} boxes, host {len(h)}")
         for db, hb in zip(d, h):
-            worst = max(worst, float(np.max(np.abs(np.asarray(db[:6]) - np.asarray(hb[:6])))))
+            if pairs:
+                check(len(db) == len(hb) and db[6::2] == [int(v) for v in hb[6::2]],
+                      f"row {r}: class pairs {db[6::2]} against {hb[6::2]}")
+                n_pairs += (len(db) - 5) // 2
+            n = len(db) if pairs else 6
+            worst = max(worst, float(np.max(np.abs(np.asarray(db[:n]) - np.asarray(hb[:n], float)))))
             n_boxes += 1
     check(n_boxes > 0, "the parity batch kept no box at all")
     # float32 values taken from the same tensors on both paths
     check(worst <= 1e-6, f"device and host boxes differ by {worst}")
 
-    args = (n_cls, region.anchor_wh, region.num_classes, valid.CONF_THRESH, TOP_K)
     # the stages as `eval_boxes` composes them
-    bsel, dsel, cconf, cid, _, csel = _decode_rank(output.float(), *args)
-    rows, keep = _nms_and_rows(bsel, dsel, cconf, cid, NMS_THRESH)
+    bsel, dsel, cconf, cid, _, csel = pipe._ranked(output)
+    rows, keep = _nms_and_rows(bsel, dsel, cconf, cid, pipe.nms_thresh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
-        _rows_to_eval_boxes(rows, keep, csel, valid.CONF_THRESH)
-    d2h_ms = (time.perf_counter() - t0) / 3 * 1e3
+        _rows_to_eval_boxes(rows, keep, csel, pipe.conf_thresh)
+    tail_ms = (time.perf_counter() - t0) / 3 * 1e3
     stages = {
-        "detect_ms": cuda_ms(lambda: m.detect(images, codes), 5),
-        "decode_rank_ms": cuda_ms(lambda: _decode_rank(output.float(), *args), 10),
-        "nms_ms": cuda_ms(lambda: nms_rows(bsel, dsel, NMS_THRESH), 50),
-        "d2h_and_lists_ms": d2h_ms,
+        "detect_ms": cuda_ms(forward, 5),
+        "decode_rank_ms": cuda_ms(lambda: pipe._ranked(output), 10),
+        "nms_ms": cuda_ms(lambda: nms_rows(bsel, dsel, pipe.nms_thresh), 50),
+        "nms_card_ms": card_ms(lambda: nms_rows(bsel, dsel, pipe.nms_thresh), 50),
+        "d2h_and_lists_ms": tail_ms,
     }
-    return {"parity_boxes": n_boxes, "parity_max_abs_diff": worst, **stages}, (bsel, dsel)
+    report = {"parity_boxes": n_boxes, "parity_max_abs_diff": worst, **stages}
+    if pairs:
+        report["parity_class_pairs"] = n_pairs
+    return report, (bsel, dsel)
 
 
 def phase_traffic(m, codes, rng) -> None:
@@ -738,10 +782,18 @@ def phase_serve(seed: int, n_batches: int, outdir: str) -> dict:
             dev_codes = m.commit_codes([c[:n_cls] for c in codes])
             # the one-batch pass comes first: it also warms the card up, so
             # the sweep's rate is not that of first calls
-            one, rows = host_parity_and_stages(m, images[:BATCH], dev_codes, n_cls)
+            one, rows = one_batch(
+                lambda codes=dev_codes: m.detect(images[:BATCH], codes),
+                valid._device_pipe(m.region, n_cls),
+                functools.partial(valid.meta_host_boxes, m.region, n_cls=n_cls),
+                (BATCH * n_cls, 13, 13, 30))
             report["one_batch"].append({"n_cls": n_cls, **one})
-            report["sweeps"].append(
-                sweep(m, detset, dev_codes, n_cls, classes, outdir, f"{name}_{n_cls}"))
+            run = (lambda prefix, stats, codes=dev_codes, n_cls=n_cls, classes=classes:
+                   valid._meta_sweep(m, detset, prefix, "comp4_det_test_", lambda: codes,
+                                     n_cls, classes, BATCH, stats=stats))
+            report["sweeps"].append({"n_cls": n_cls, **sweep(
+                run, len(detset.lines), classes, outdir, f"{name}_{n_cls}", TOP_K)})
+            check(report["sweeps"][-1]["nms_launches"] > 0, "a meta sweep launched no kernel")
             main_launches += report["sweeps"][-1]["nms_launches"]
             if captured is None:
                 captured = rows
@@ -785,14 +837,16 @@ def load_train_state(spec):
     return params, header
 
 
-def grad_norms(grads) -> dict:
-    """L2 norms of a few gradient leaves spread over both networks, and of
-    the whole tree."""
+META_PICKS = {"darknet0.w": ("darknet", 0, "w"), "darknet0.gamma": ("darknet", 0, "bn", "gamma"),
+              "darknet29.w": ("darknet", 29, "w"), "darknet29.beta": ("darknet", 29, "bn", "beta"),
+              "head.w": ("darknet", 31, "w"), "learnet0.w": ("learnet", 0, "w"),
+              "learnet12.w": ("learnet", 12, "w")}
+
+
+def grad_norms(grads, picks: dict) -> dict:
+    """L2 norms of a few gradient leaves (`picks`: name -> path) and of the
+    whole tree."""
     leaves = dict(tree_leaves_with_path(grads))
-    picks = {"darknet0.w": ("darknet", 0, "w"), "darknet0.gamma": ("darknet", 0, "bn", "gamma"),
-             "darknet29.w": ("darknet", 29, "w"), "darknet29.beta": ("darknet", 29, "bn", "beta"),
-             "head.w": ("darknet", 31, "w"), "learnet0.w": ("learnet", 0, "w"),
-             "learnet12.w": ("learnet", 12, "w")}
     out = {k: float(leaves[p].float().norm()) for k, p in picks.items()}
     out["all"] = float(torch.sqrt(sum(g.float().square().sum() for g in leaves.values())))
     return out
@@ -843,46 +897,44 @@ class KernelClock:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dict:
+def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
+                  batch_size: int, bn_layers: int, picks: dict, dtype: torch.dtype) -> dict:
+    """One training path (phase `tag`) in one dtype: `make_trainer(**kw)` builds its
+    trainer (kw: remat), `load_params()` a fresh parameter tree on the card,
+    `episodes` are its batches (2 warm-up + timed ones), `lr(i)` the rate of
+    step i, `bn_layers` its BatchNorms, `picks` the gradient leaves to
+    report. The first step's loss and gradient norms through the kernels,
+    the plain versions, float64 sums and remat; then the main path."""
     name = str(dtype).split(".")[-1]
-    params, header = load_train_state(spec)
-    check(header.seen == seen0, f"checkpoint header says seen={header.seen}")
-    batch_size = sched.batch_size
-    kw = dict(momentum=sched.momentum, weight_decay=sched.weight_decay, metain_type=2,
-              image_dtype=dtype, warmup_seen=12800, device=DEVICE)
-    trainer = MetaTrainer(spec, **kw)
-    episodes = [make_episode(seed + i, batch_size, TRAIN_N_CLS, 416, name)
-                for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)]
-    check(tuple(episodes[0]["x"].shape) == (1, batch_size, 416, 416, 3), "episode images shape")
-    check(tuple(episodes[0]["metax"].shape) == (1, TRAIN_N_CLS, 416, 416, 3), "support shape")
+    params = load_params()
+    trainer = make_trainer()
 
     # -- the first step's loss and gradients: kernels, plain versions, remat
     seen = seen0 + batch_size
     bn_sums.launches = bn_sums.backward_launches = 0
     loss_k, grads_k, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
     torch.cuda.synchronize()
-    check((bn_sums.launches, bn_sums.backward_launches) == (BN_LAYERS, BN_LAYERS),
+    check((bn_sums.launches, bn_sums.backward_launches) == (bn_layers, bn_layers),
           f"one step launched {bn_sums.launches} + {bn_sums.backward_launches} bn_sums kernels")
-    norms_k = grad_norms(grads_k)
+    norms_k = grad_norms(grads_k, picks)
     del grads_k
     norms, loss = {"kernel": norms_k}, {"kernel": float(loss_k)}
     # the same step through the plain version, and through sums taken in
     # float64 (both differentiated by autograd): the yardstick for how far
     # two right float32 answers lie apart at this depth
-    for tag, fn in (("plain", bn_sums_reference), ("float64", bn_sums_float64)):
+    for way, fn in (("plain", bn_sums_reference), ("float64", bn_sums_float64)):
         layers.bn_sums = fn
         loss_v, grads_v, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
         layers.bn_sums = bn_sums
-        norms[tag], loss[tag] = grad_norms(grads_v), float(loss_v)
+        norms[way], loss[way] = grad_norms(grads_v, picks), float(loss_v)
         del grads_v
-    check(bn_sums.launches == BN_LAYERS, "a plain step launched the kernel")
+    check(bn_sums.launches == bn_layers, "a plain step launched the kernel")
     bn_sums.launches = bn_sums.backward_launches = 0
-    loss_v, grads_v, _, _ = MetaTrainer(spec, remat=True, **kw).loss_and_grads(
-        params, episodes[0], seen)
-    norms["remat"], loss["remat"] = grad_norms(grads_v), float(loss_v)
+    loss_v, grads_v, _, _ = make_trainer(remat=True).loss_and_grads(params, episodes[0], seen)
+    norms["remat"], loss["remat"] = grad_norms(grads_v, picks), float(loss_v)
     del grads_v
     remat_launches = (bn_sums.launches, bn_sums.backward_launches)
-    check(remat_launches == (BN_LAYERS, BN_LAYERS),
+    check(remat_launches == (bn_layers, bn_layers),
           f"the remat step launched {remat_launches} bn_sums kernels")
     # Kernel and plain version add in another order, so a layer's statistics
     # differ in the last bit; every BN backward below amplifies that, most in
@@ -896,7 +948,7 @@ def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dic
            else {"loss": 2e-2, "all": 1e-1, "leaf": 2e-1})
     first_step = {"loss": loss, "grad_norms": norms, "rel_tolerance": tol,
                   "remat_launches": list(remat_launches)}
-    emit("train_first_step", dtype=name, **first_step)
+    emit(f"{tag}_first_step", dtype=name, **first_step)
     check(np.isfinite(loss["kernel"])
           and abs(loss["kernel"] - loss["plain"]) <= tol["loss"] * abs(loss["plain"]),
           f"first step's loss {loss['kernel']} against {loss['plain']} through the plain version")
@@ -904,16 +956,15 @@ def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dic
           f"remat loss {loss['remat']} against {loss['kernel']}")
     for key, exact in norms["float64"].items():
         room = tol["all" if key == "all" else "leaf"] * exact
-        for tag in ("kernel", "plain", "remat"):
-            check(abs(norms[tag][key] - exact) <= room,
-                  f"gradient norm {key}: {tag} {norms[tag][key]} against {exact} (float64 sums)")
+        for way in ("kernel", "plain", "remat"):
+            check(abs(norms[way][key] - exact) <= room,
+                  f"gradient norm {key}: {way} {norms[way][key]} against {exact} (float64 sums)")
         check(abs(norms["kernel"][key] - norms["plain"][key]) <= 2 * room,
               f"gradient norm {key}: {norms['kernel'][key]} against {norms['plain'][key]} (plain)")
 
     # -- the main path: warm-up and timed steps, counts read right after
     before = bn_stats_snapshot(params)
     mom = init_momentum(params)
-    processed = seen0 // batch_size
     lines, losses = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -924,7 +975,7 @@ def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dic
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         seen += batch_size
-        params, mom, metrics = trainer.step(params, mom, ep, seen=seen, lr=sched.lr(processed + i))
+        params, mom, metrics = trainer.step(params, mom, ep, seen=seen, lr=lr(i))
         lines.append(format_loss_line(seen, metrics))  # the step's one host sync
         losses.append(float(lines[-1].rsplit(" ", 1)[-1]))
     torch.cuda.synchronize()
@@ -932,11 +983,12 @@ def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dic
     launches = (bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies)
     peak = torch.cuda.max_memory_allocated()
     steps = len(episodes)
-    check(launches[:2] == (BN_LAYERS * steps, BN_LAYERS * steps),
+    timed = steps - TRAIN_WARMUP_STEPS
+    check(launches[:2] == (bn_layers * steps, bn_layers * steps),
           f"{steps} steps launched {launches[0]} forward and {launches[1]} backward bn_sums kernels")
     check(all(np.isfinite(losses)), f"losses {losses}")
     after = bn_stats_snapshot(params)
-    check(len(before) == 2 * BN_LAYERS, f"{len(before)} running-statistics leaves")
+    check(len(before) == 2 * bn_layers, f"{len(before)} running-statistics leaves")
     still = [p for p in before if torch.equal(before[p], after[p])]
     check(not still, f"running statistics did not move: {still}")
     check(all(bool(torch.isfinite(t).all()) for _, t in tree_leaves_with_path(params)),
@@ -947,37 +999,34 @@ def train_variant(spec, sched, seen0: int, dtype: torch.dtype, seed: int) -> dic
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with KernelClock() as clock:
         a.record()
-        trainer.step(params, mom, episodes[-1], seen=seen + batch_size, lr=sched.lr(processed + steps))
+        trainer.step(params, mom, episodes[-1], seen=seen + batch_size, lr=lr(steps))
         b.record()
         torch.cuda.synchronize()
     step_ms, kernels_ms = a.elapsed_time(b), clock.total_ms()
-    check(len(clock.events) == 2 * BN_LAYERS, f"{len(clock.events)} timed launches in one step")
+    check(len(clock.events) == 2 * bn_layers, f"{len(clock.events)} timed launches in one step")
 
-    return {"dtype": name, "batch": batch_size, "n_cls": TRAIN_N_CLS, "size": 416, "groups": 1,
-            "seen_start": seen0, "lr_first_step": sched.lr(processed),
-            "weight_decay": sched.weight_decay, "momentum": sched.momentum,
-            "first_step": first_step,
-            "steps": steps, "timed_steps": TRAIN_TIMED_STEPS, "losses": losses,
+    return {"dtype": name, "batch": batch_size, "size": 416, "groups": 1,
+            "seen_start": seen0, "lr_first_step": lr(0), "weight_decay": trainer.weight_decay,
+            "momentum": trainer.momentum, "first_step": first_step,
+            "steps": steps, "timed_steps": timed, "losses": losses,
             "first_line": lines[0], "last_line": lines[-1],
             "bn_fwd_launches": launches[0], "bn_bwd_launches": launches[1],
             "launches_per_step": [launches[0] // steps, launches[1] // steps],
             "layout_copies": launches[2], "bn_stats_moved": len(before),
             "peak_memory_bytes": peak, "seconds_timed": seconds,
-            "images_per_s": TRAIN_TIMED_STEPS * batch_size / seconds,
+            "images_per_s": timed * batch_size / seconds,
             "step_ms_events": step_ms, "bn_kernels_ms_in_step": kernels_ms,
             "bn_kernels_share": kernels_ms / step_ms, "bn_layer_shapes": clock.forward_shapes}
 
 
-def phase_train(seed: int) -> dict:
-    """Returns the bn_sums launches of the main path, summed over variants."""
-    dblocks, lblocks = parse_cfg(DARKNET_CFG), parse_cfg(LEARNET_CFG)
-    spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
-    sched = schedule_from_cfg(dblocks[0], TRAIN_NEG_RATIO, TRAIN_N_CLS)
-    check(sched.batch_size == 64, f"the cfg's batch is {sched.batch_size}")
+def run_train_variants(name: str, variant) -> dict:
+    """`variant(dtype)` for float32 and bfloat16, each emitted as phase
+    `name`; returns the bn_sums launches of their main paths, summed, and the
+    BN layers' shapes."""
     total = {"fwd": 0, "bwd": 0, "layout_copies": 0}
     for dtype in (torch.float32, torch.bfloat16):
-        report = train_variant(spec, sched, SEEN, dtype, seed)
-        emit("train", **report)
+        report = variant(dtype)
+        emit(name, **report)
         total["bn_layer_shapes"] = report["bn_layer_shapes"]
         total["fwd"] += report["bn_fwd_launches"]
         total["bwd"] += report["bn_bwd_launches"]
@@ -986,15 +1035,227 @@ def phase_train(seed: int) -> dict:
     return total
 
 
-def phase_bn_step(shapes: list, seed: int) -> None:
-    """The `bn_sums` kernels over the BN layers of one training step, one
+def phase_train(seed: int) -> dict:
+    """Returns the bn_sums launches of the main path, summed over variants."""
+    dblocks, lblocks = parse_cfg(DARKNET_CFG), parse_cfg(LEARNET_CFG)
+    spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
+    sched = schedule_from_cfg(dblocks[0], TRAIN_NEG_RATIO, TRAIN_N_CLS)
+    check(sched.batch_size == 64, f"the cfg's batch is {sched.batch_size}")
+    processed = SEEN // sched.batch_size
+
+    def load_params():
+        params, header = load_train_state(spec)
+        check(header.seen == SEEN, f"checkpoint header says seen={header.seen}")
+        return params
+
+    def variant(dtype):
+        name = str(dtype).split(".")[-1]
+        episodes = [make_episode(seed + i, sched.batch_size, TRAIN_N_CLS, 416, name)
+                    for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)]
+        check(tuple(episodes[0]["x"].shape) == (1, sched.batch_size, 416, 416, 3),
+              "episode images shape")
+        check(tuple(episodes[0]["metax"].shape) == (1, TRAIN_N_CLS, 416, 416, 3), "support shape")
+
+        def make_trainer(**kw):
+            return MetaTrainer(spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
+                               metain_type=2, image_dtype=dtype, warmup_seen=12800,
+                               device=DEVICE, **kw)
+
+        report = train_variant("train", make_trainer, load_params, episodes,
+                               lambda i: sched.lr(processed + i), SEEN, sched.batch_size,
+                               BN_LAYERS, META_PICKS, dtype)
+        return {"n_cls": TRAIN_N_CLS, **report}
+
+    return run_train_variants("train", variant)
+
+
+# ---------------------------------------------------------------------------
+# plain_serve / plain_train: the plain YOLOv2 family at full width
+# ---------------------------------------------------------------------------
+
+
+def plain_params(spec, seed: int) -> list:
+    """Seeded numpy tree for cfg/yolo-voc.cfg (the repo has no trained plain
+    checkpoint): the port's init with the conv weights scaled by 2.45 (He
+    scale for a uniform fan-in init, so activations stay O(1) through the 23
+    layers of the folded inference graph) and random BN statistics, as the
+    parity tests make them (tests/torch_port_util.py:randomize_bn)."""
+    rng = np.random.default_rng(seed)
+    params = init_params(spec, rng)
+    for p in params:
+        if p and "w" in p:
+            p["w"] = p["w"] * np.float32(2.45)
+        if p and "bn" in p:
+            c = p["bn"]["gamma"].shape[0]
+            p["bn"] = {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                       "beta": rng.uniform(-0.3, 0.3, c).astype(np.float32),
+                       "mean": rng.uniform(-0.2, 0.2, c).astype(np.float32),
+                       "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+    return params
+
+
+def plain_detect_flow(m, image) -> dict:
+    """The detect flow of `detect_torch.py` (`detect_pipeline`,
+    `detect_boxes`): serving thresholds, conf 0.5 on objectness alone, NMS
+    0.4, a buffer cut to the grid's 845 anchors, so nothing is truncated.
+    One launch; the keep mask bit-equal to the plain version's on the same
+    buffer (the rows' first five columns are the buffer's boxes and
+    confidences); the boxes those of the host path (get_region_boxes + nms).
+    Returns the kernel launches of the flow with the report."""
+    pipe = detect_torch.detect_pipeline(m.region)
+    output = m(image)
+    counts = pipe._ranked(output)[4]
+    torch.cuda.synchronize()
+    nms_rows.launches = 0  # read right after the flow's one call
+    boxes = detect_torch.detect_boxes(m, pipe, output)
+    torch.cuda.synchronize()
+    launches = nms_rows.launches
+    check(launches == 1, f"the detect flow launched nms_rows {launches} times")
+    rows, keep = pipe.device_call(output)
+    want = nms_rows_reference(rows[..., :4].contiguous(), rows[..., 4].contiguous(), 0.4)
+    check(torch.equal(keep, want), f"detect flow: {int((keep != want).sum())} keep slots differ "
+          "from nms_rows_reference")
+    check(len(boxes) == int(keep.sum()), "detect flow: box list and keep mask disagree")
+    host = nms(get_region_boxes(output, 0.5, m.region.num_classes, m.region.anchor_wh)[0], 0.4)
+    check(len(host) == len(boxes) and all(d[6] == h[6] for d, h in zip(boxes, host)),
+          f"detect flow: {len(boxes)} boxes on the device, {len(host)} on the host path")
+    worst = max((float(np.max(np.abs(np.asarray(d) - np.asarray(h, float))))
+                 for d, h in zip(boxes, host)), default=0.0)
+    check(worst <= 1e-6, f"detect flow: device and host boxes differ by {worst}")
+    return {"candidates_above_0.5": int(counts.max()), "top_k": int(rows.shape[1]),
+            "kept": len(boxes), "keep_equal": True, "host_max_abs_diff": worst,
+            "nms_launches": launches}
+
+
+def phase_plain_serve(seed: int, n_batches: int, outdir: str) -> dict:
+    """cfg/yolo-voc.cfg at 416x416 from seeded weights written to a
+    `.weights` file and read back through PlainDetector; the plain sweep
+    (eval/valid.py:_plain_sweep -> DevicePipeline(validation=True) ->
+    per-class files) at batch 16 in float32 and bfloat16, with a candidate
+    buffer of 845, every anchor of the 13x13x5 grid (FSD_DEVICE_NMS_K, as a
+    user sets it); a batch at the default buffer of 256 for the host path;
+    the detect flow. Returns the main path's launches and the candidate rows
+    of its first batch."""
+    spec = build_spec(parse_cfg(PLAIN_CFG))
+    check((spec.width, spec.height, spec.region.num_classes) == (416, 416, 20),
+          "cfg/yolo-voc.cfg is not at 416x416 with 20 classes")
+    rng = np.random.default_rng(seed)
+    images, _ = paint_images(rng, n_batches * BATCH, 416)
+    detset = MemoryDetectionSet(images)
+    captured, main_launches, reports = None, 0, []
+    old_k = os.environ.get("FSD_DEVICE_NMS_K")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plain_") as tmp:
+        wpath = os.path.join(tmp, "yolo-voc.weights")
+        save_weights(wpath, [spec], [plain_params(spec, seed)], seen=PLAIN_SEEN)
+        try:
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                t0 = time.perf_counter()
+                m = PlainDetector(PLAIN_CFG, wpath, compute_dtype=dtype, device=DEVICE)
+                load_s = time.perf_counter() - t0
+                check(m.header.seen == PLAIN_SEEN, f"weights header says seen={m.header.seen}")
+                os.environ["FSD_DEVICE_NMS_K"] = str(PLAIN_TOP_K)
+                one, rows = one_batch(lambda m=m: m(images[:BATCH]),
+                                      valid._device_pipe(m.region),
+                                      functools.partial(valid.plain_host_boxes, m.region),
+                                      (BATCH, 13, 13, 125))
+                run = (lambda prefix, stats, m=m: valid._plain_sweep(
+                    m, detset, prefix, "comp4_det_test_", VOC_CLASSES, BATCH, stats=stats))
+                swept = sweep(run, len(detset.lines), VOC_CLASSES, outdir, f"plain_{name}",
+                              PLAIN_TOP_K)
+                check(swept["nms_launches"] == swept["batches"],
+                      f"{swept['nms_launches']} launches for {swept['batches']} plain batches")
+                main_launches += swept["nms_launches"]
+                # the default buffer: a row of the random head holds more
+                # candidates than 256, so the batch is redone on the host
+                # and launches nothing
+                os.environ.pop("FSD_DEVICE_NMS_K", None)
+                single = MemoryDetectionSet(images[:BATCH])
+                run = (lambda prefix, stats, m=m, single=single: valid._plain_sweep(
+                    m, single, prefix, "comp4_det_test_", VOC_CLASSES, BATCH, stats=stats))
+                default = sweep(run, BATCH, VOC_CLASSES, outdir, f"plain_{name}_k256", 256)
+                detect = plain_detect_flow(m, images[:1])
+                main_launches += detect["nms_launches"]
+                report = {"dtype": name, "load_seconds": load_s, "one_batch": one,
+                          "sweep": swept, "default_buffer": default, "detect_flow": detect}
+                reports.append(report)
+                emit("plain_serve", **report)
+                if captured is None:
+                    captured = rows
+        finally:
+            if old_k is None:
+                os.environ.pop("FSD_DEVICE_NMS_K", None)
+            else:
+                os.environ["FSD_DEVICE_NMS_K"] = old_k
+    return {"rows": captured, "launches": main_launches}
+
+
+def make_plain_episode(seed: int, batch_size: int, dtype_name: str) -> dict:
+    """One batch for PlainTrainer painted from the seed through the CLI's own
+    batch maker: noisy backgrounds (see make_episode), the first rectangle of
+    image i labelled as class i % 20, every image kept (cfg/voc.data has no
+    neg ratio)."""
+    imgs, first = paint_images(np.random.default_rng(seed), batch_size, 416, "noise")
+    labels = np.zeros((batch_size, 50, 5), np.float32)
+    labels[:, 0, 0] = np.arange(batch_size) % 20
+    labels[:, 0, 1:] = first
+    return make_plain_batch(imgs, labels.reshape(batch_size, 250), 1, "full", None,
+                            dtype=dtype_name)
+
+
+class PlainTrainSetup:
+    """The plain training step for cfg/yolo-voc.cfg: the spec, the schedule
+    train_plain_cli derives (`plain_schedule_from_cfg`) and the parameters
+    from `plain_params` (the smoke and scripts/torch_train_profile.py share
+    it)."""
+
+    def __init__(self, seed: int):
+        blocks = parse_cfg(PLAIN_CFG)
+        self.spec = build_spec(blocks)
+        self.sched = plain_schedule_from_cfg(blocks[0])
+        self.base = plain_params(self.spec, seed)
+
+    def load_params(self):
+        return require_grads(from_jax_params(self.spec, self.base, DEVICE))
+
+    def make_trainer(self, dtype, **kw):
+        return PlainTrainer(self.spec, momentum=self.sched.momentum,
+                            weight_decay=self.sched.weight_decay,
+                            image_dtype=dtype, device=DEVICE, **kw)
+
+
+def phase_plain_train(seed: int) -> dict:
+    """PlainTrainer on cfg/yolo-voc.cfg at the cfg's batch 64 and 416 px, one
+    replica group, from seeded weights at seen 0 (a run from a backbone),
+    with lr and weight decay as train_plain_cli derives them
+    (`PlainTrainSetup`), on batches from `make_plain_episode`. Returns the
+    bn_sums launches of the main path, summed over variants."""
+    setup = PlainTrainSetup(seed)
+    sched = setup.sched
+    check(sched.batch_size == 64, f"the cfg's batch is {sched.batch_size}")
+
+    def variant(dtype):
+        name = str(dtype).split(".")[-1]
+        episodes = [make_plain_episode(seed + 100 + i, sched.batch_size, name)
+                    for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)]
+        check(tuple(episodes[0]["x"].shape) == (1, sched.batch_size, 416, 416, 3), "batch shape")
+        return train_variant("plain_train", lambda **kw: setup.make_trainer(dtype, **kw),
+                             setup.load_params, episodes, sched.lr, 0, sched.batch_size,
+                             PLAIN_BN_LAYERS, PLAIN_PICKS, dtype)
+
+    return run_train_variants("plain_train", variant)
+
+
+def phase_bn_step(path: str, shapes: list, n_layers: int, seed: int) -> None:
+    """The `bn_sums` kernels over the BN layers of one step of training
+    path `path` (train, plain_train), one
     launch at a time outside the step: for each type the sum over the layers
     of kernel time on the card and of the byte bound, forward and backward.
     The gap between the two sums is what the kernels leave on the table each
     step.
     Each distinct shape is timed once (inputs of up to 50 MB sit in the L2
     cache, as they do behind the convolution that wrote them)."""
-    check(len(shapes) == BN_LAYERS, f"{len(shapes)} BN layers in a step, not {BN_LAYERS}")
+    check(len(shapes) == n_layers, f"{len(shapes)} BN layers in a {path} step, not {n_layers}")
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -1016,22 +1277,30 @@ def phase_bn_step(shapes: list, seed: int) -> None:
         total["bwd_share_of_bound"] = total["bwd_bound_ms"] / total["bwd_card_ms"]
         report[name] = {**total, "values": sum(m * c for m, c in shapes),
                         "shapes": list(per_shape.values())}
-    emit("bn_sums_step", layers=len(shapes), **report)
+    emit("bn_sums_step", path=path, layers=len(shapes), **report)
 
 
-def kernels_line(launches: int, worst: int, rows, bn: dict, train: dict) -> dict:
-    """The summary of every kernel of the port, timed on the candidate rows
-    that the main path's first batch produced (20 classes, float32). The rows
-    are in L2 when the kernel starts, as they are behind `_decode_rank`."""
-    bsel, dsel = rows
-    res = compare_kernel(bsel, dsel, timed=True)
-    check(res["max_mismatch"] == 0, "nms_rows disagrees on the main path's rows")
+def kernels_line(served: dict, worst: int, bn: dict, trained: dict) -> dict:
+    """The summary of every kernel of the port. `served` and `trained` map
+    each serving and training path to what it returned: its launches (read
+    right after the path ran), and for the serving paths the candidate rows
+    of its first batch (float32; the ensemble sweep's at 20 classes). The
+    NMS kernel is timed on the ensemble sweep's rows, as in the earlier
+    slices, and on the plain sweep's; the rows are in L2 when the kernel
+    starts, as they are behind `_decode_rank`."""
+    res = compare_kernel(*served["serve"]["rows"], timed=True)
+    plain = compare_kernel(*served["plain_serve"]["rows"], timed=True)
+    check(res["max_mismatch"] == 0 and plain["max_mismatch"] == 0,
+          "nms_rows disagrees on the main path's rows")
+    plain_keys = ("shape", "valid", "kept", "kernel_ms", "card_ms", "plain_ms", "bound_ms",
+                  "bound_by", "bound_term", "share_of_bound")
     return {"kernels": [{
         "name": "nms_rows",
         "route": "cuda",
         "source": "fewshot_detection_tpu_torch/csrc/nms.cu",
         "replaces": "fewshot_detection_tpu/ops/nms_device.py:57",
-        "launches": launches,
+        "launches": sum(v["launches"] for v in served.values()),
+        "launches_by_path": {k: v["launches"] for k, v in served.items()},
         "max_abs_err": float(max(worst, res["max_mismatch"])),
         "ms": res["kernel_ms"],
         "card_ms": res["card_ms"],
@@ -1050,10 +1319,11 @@ def kernels_line(launches: int, worst: int, rows, bn: dict, train: dict) -> dict
         "flops_bound_ms": res["flops_bound_ms"],
         "chain_bound_ms": res["chain_bound_ms"],
         "share_of_bound": res["share_of_bound"],
-    }, *bn_kernel_entries(bn, train)]}
+        "plain_sweep_rows": {k: plain[k] for k in plain_keys},
+    }, *bn_kernel_entries(bn, trained)]}
 
 
-def bn_kernel_entries(bn: dict, train: dict) -> list:
+def bn_kernel_entries(bn: dict, trained: dict) -> list:
     """`bn_sums_fwd` and `bn_sums_bwd`, timed at the main path's largest
     shape in float32 (the bfloat16 times ride along), with the worst error
     over every compared case."""
@@ -1069,7 +1339,8 @@ def bn_kernel_entries(bn: dict, train: dict) -> list:
             "route": "cuda",
             "source": "fewshot_detection_tpu_torch/csrc/bn_sums.cu",
             "replaces": f"fewshot_detection_tpu/ops/bn_pallas.py:{line}",
-            "launches": train[way],
+            "launches": sum(v[way] for v in trained.values()),
+            "launches_by_path": {k: v[way] for k, v in trained.items()},
             "max_abs_err": max(c[err_key] for c in bn["cases"]),
             "ms": f32[f"{way}_ms"],
             "card_ms": f32[f"{way}_card_ms"],
@@ -1083,12 +1354,12 @@ def bn_kernel_entries(bn: dict, train: dict) -> list:
             "dtype": "float32",
             "bfloat16": {k.split("_", 1)[1]: v for k, v in b16.items() if k.startswith(way)},
             "max_err_over_sum_abs": max(c["kernel_err_over_sum_abs"] for c in bn["cases"]),
-            "layout_copies": train["layout_copies"],
+            "layout_copies": sum(v["layout_copies"] for v in trained.values()),
         })
     return entries
 
 
-PHASES = ("device", "build", "kernels", "serve", "train")
+PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train")
 
 
 def main() -> int:
@@ -1115,20 +1386,27 @@ def main() -> int:
     if "kernels" in phases:
         worst = phase_kernels(args.seed)
         bn = phase_bn_kernels(args.seed)
-    if "serve" in phases:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
-            served = phase_serve(args.seed, args.batches, outdir)
-        check(served["launches"] > 0, "the main path never launched the NMS kernel")
-    if "train" in phases:
-        trained = phase_train(args.seed)
-        check(trained["fwd"] > 0 and trained["bwd"] > 0,
-              "the training path never launched the bn_sums kernels")
-        phase_bn_step(trained["bn_layer_shapes"], args.seed)
+    served, trained = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
+        if "serve" in phases:
+            served["serve"] = phase_serve(args.seed, args.batches, outdir)
+        if "plain_serve" in phases:
+            served["plain_serve"] = phase_plain_serve(args.seed, args.batches, outdir)
+    for path, fn, n_layers in (("train", phase_train, BN_LAYERS),
+                               ("plain_train", phase_plain_train, PLAIN_BN_LAYERS)):
+        if path in phases:
+            trained[path] = fn(args.seed)
+            phase_bn_step(path, trained[path]["bn_layer_shapes"], n_layers, args.seed)
+    for path, got in served.items():
+        check(got["launches"] > 0, f"the {path} path never launched the NMS kernel")
+    for path, got in trained.items():
+        check(got["fwd"] > 0 and got["bwd"] > 0,
+              f"the {path} path never launched the bn_sums kernels")
     if set(phases) != set(PHASES):
         print(f"ran only {phases}: no result line", file=sys.stderr)
         return 2
 
-    line = kernels_line(served["launches"], worst, served["rows"], bn, trained)
+    line = kernels_line(served, worst, bn, trained)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,33 +25,52 @@ from ..ops.nms_device import nms_rows
 
 def _decode_rank(
     output: torch.Tensor,
-    n_cls: int,
+    n_cls: int | None,
     anchors: tuple[tuple[float, float], ...],
     num_classes: int,
     conf_thresh: float,
     top_k: int,
+    validation: bool = True,
 ):
-    """Decode, cross-copy softmax, threshold and rank: everything of
-    `_pipeline_v2` before the NMS. Returns (bsel (R,K,4), dsel (R,K),
-    cconf (R,K), cid (R,K) int64, counts (R,) int32, csel (R,K,nC))."""
+    """Decode, class softmax, threshold and rank: everything of the
+    pipelines before the NMS. Returns (bsel (R,K,4), dsel (R,K), cconf
+    (R,K), cid (R,K) int64, counts (R,) int32, csel (R,K,nC)).
+
+    n_cls=None is the plain YOLOv2 head (the JAX package's `_pipeline`):
+    per-anchor softmax over the nC classes, `cid` the argmax class of each
+    candidate (the first of tied maxima, as numpy and JAX take it).
+    Otherwise the meta head (`_pipeline_v2`): softmax ACROSS the n_cls
+    image-major copies of each image (reference utils.py:212-219), `cid`
+    the row's class position. `validation` thresholds on
+    det*max_cls_conf (the mAP sweeps, reference valid.py:60); without it on
+    det alone (serving, reference utils.py:112-193 only_objectness)."""
     decoded = decode_region_output(output, anchors, num_classes)
     bn = output.shape[0]
-    logits = decoded["cls_logits"]  # (B*n, A, H, W, nC)
-    # softmax ACROSS the n_cls copies of each image: axis 1, not the last
-    sm = torch.softmax(
-        logits.reshape(bn // n_cls, n_cls, *logits.shape[1:]), dim=1
-    ).reshape(logits.shape)
-    # metayolo heads are single-class per copy; rank by the max class conf
-    cls_conf = sm.amax(dim=-1)
+    logits = decoded["cls_logits"]  # (R, A, H, W, nC)
+    if n_cls is None:
+        sm = torch.softmax(logits, dim=-1)
+    else:
+        # softmax ACROSS the n_cls copies of each image: axis 1, not the last
+        sm = torch.softmax(
+            logits.reshape(bn // n_cls, n_cls, *logits.shape[1:]), dim=1
+        ).reshape(logits.shape)
 
+    # flatten candidates in the host loop order (cy, cx, anchor) so NMS
+    # tie-breaking matches ops.boxes.filter_boxes + nms exactly
     boxes = decoded["boxes"].permute(0, 2, 3, 1, 4).reshape(bn, -1, 4)
     det = decoded["det_conf"].permute(0, 2, 3, 1).reshape(bn, -1)
-    cls = cls_conf.permute(0, 2, 3, 1).reshape(bn, -1)
     cls_full = sm.permute(0, 2, 3, 1, 4).reshape(bn, -1, sm.shape[-1])
+    cls = cls_full.amax(dim=-1)
+    if n_cls is None:
+        cid = cls_full.argmax(dim=-1)
+    else:
+        # integer class position: a float index in the compute dtype would
+        # go inexact past 256 rows and misroute boxes to the wrong per-class
+        # file; it becomes a float only in the final concatenate
+        cid = (torch.arange(bn, device=output.device) % n_cls)[:, None].expand(-1, det.shape[1])
 
-    # threshold on det*cls (validation semantics, reference utils.py:255-282)
-    # but rank and NMS on objectness — the host nms key (utils.py:85-104)
-    mask = det * cls > conf_thresh
+    # rank and NMS on objectness — the host nms key (utils.py:85-104)
+    mask = (det * cls if validation else det) > conf_thresh
     # The host sorts ascending on the float32 key (1 - det) with a STABLE
     # argsort; dets that collide after that rounding must stay ties here
     # too, so rank on -(1 - det) rather than raw det. Masked-out candidates
@@ -71,11 +90,7 @@ def _decode_rank(
     ).contiguous()
     cconf = torch.gather(cls, 1, idx)
     csel = torch.gather(cls_full, 1, idx[..., None].expand(-1, -1, cls_full.shape[-1]))
-    # integer class position: a float index in the compute dtype would go
-    # inexact past 256 rows and misroute boxes to the wrong per-class file;
-    # it becomes a float only in the final concatenate
-    cid = (torch.arange(bn, device=output.device) % n_cls)[:, None].expand(-1, top_k)
-    return bsel, dsel, cconf, cid, counts, csel
+    return bsel, dsel, cconf, torch.gather(cid, 1, idx), counts, csel
 
 
 def _nms_and_rows(bsel, dsel, cconf, cid, nms_thresh: float):
@@ -88,31 +103,6 @@ def _nms_and_rows(bsel, dsel, cconf, cid, nms_thresh: float):
         dim=-1,
     )
     return rows, keep
-
-
-def _pipeline_v2(
-    output: torch.Tensor,
-    n_cls: int,
-    anchors: tuple[tuple[float, float], ...],
-    num_classes: int,
-    conf_thresh: float,
-    nms_thresh: float,
-    top_k: int,
-):
-    """Meta-detector decode: cross-copy class softmax (reference
-    utils.py:212-219) normalizes class confidence ACROSS the n_cls batch
-    copies, then each (image, class) row is thresholded on det*cls and
-    greedily NMS'd on objectness — all on the device with fixed buffers.
-
-    output: (B*n_cls, H, W, A*(5+nC)) image-major. Returns (rows, keep,
-    counts, csel) with leading dim B*n_cls; rows are [cx cy w h det
-    cls_conf class_idx] (class_idx = the row's class position, which is what
-    routes boxes to per-class result files in the meta sweeps)."""
-    bsel, dsel, cconf, cid, counts, csel = _decode_rank(
-        output.float(), n_cls, anchors, num_classes, conf_thresh, top_k
-    )
-    rows, keep = _nms_and_rows(bsel, dsel, cconf, cid, nms_thresh)
-    return rows, keep, counts, csel
 
 
 def _kept_boxes(rows: np.ndarray, keep: np.ndarray):
@@ -159,15 +149,84 @@ def _rows_to_eval_boxes(rows, keep, csel, conf_thresh):
     return out
 
 
-class MetaDevicePipeline:
+class DevicePipeline:
+    """On-device decode + per-image NMS for the plain YOLOv2 detector.
+
+    `__call__(raw_output) -> list of per-image reference-format box lists`
+    (``[cx, cy, w, h, det_conf, cls_conf, cls_id]``, kept boxes in
+    objectness-descending order — the ops.boxes.nms contract). An image with
+    more than top_k candidates above conf_thresh keeps the top_k
+    highest-objectness ones there (`eval_boxes` reports that instead; a
+    top_k above the grid's anchor count is cut to it, so a buffer can hold
+    every candidate). `validation=False` is serving (threshold on
+    objectness, `detect`);
+    `validation=True` the mAP sweeps' semantics. Runs on whatever device
+    `output` lies on.
+    """
+
+    n_cls = None  # one row per image
+
+    def __init__(
+        self,
+        region,
+        conf_thresh: float = 0.5,
+        nms_thresh: float = 0.4,
+        top_k: int = 128,
+        validation: bool = False,
+    ):
+        self.anchors = region.anchor_wh
+        self.num_classes = region.num_classes
+        self.conf_thresh = conf_thresh
+        self.nms_thresh = nms_thresh
+        self.top_k = top_k
+        self.validation = validation
+        # most candidates above conf_thresh that any row handed to
+        # `eval_boxes` has held: the sweep's margin to the buffer size
+        self.max_candidates = 0
+
+    def _ranked(self, output: torch.Tensor):
+        return _decode_rank(
+            output.float(), self.n_cls, self.anchors, self.num_classes,
+            self.conf_thresh, self.top_k, self.validation,
+        )
+
+    def device_call(self, output: torch.Tensor):
+        """(rows, keep) device tensors, one row per image (per (image,
+        class), image-major, for the meta pipeline)."""
+        bsel, dsel, cconf, cid, _, _ = self._ranked(output)
+        return _nms_and_rows(bsel, dsel, cconf, cid, self.nms_thresh)
+
+    def eval_boxes(self, output: torch.Tensor):
+        """Post-NMS per-row box lists in the host path's exact format (with
+        `validation`, incl. the reference's extra (cls_conf, cls_id) pairs),
+        or None when the fixed buffer truncated: the caller then redoes the
+        batch on the host path, so its results are the same in every
+        regime. The candidate counts are looked at before the NMS, so a
+        batch that goes to the host path launches no NMS kernel."""
+        bsel, dsel, cconf, cid, counts, csel = self._ranked(output)
+        most = int(counts.max()) if counts.numel() else 0
+        self.max_candidates = max(self.max_candidates, most)
+        if most > self.top_k:
+            return None
+        rows, keep = _nms_and_rows(bsel, dsel, cconf, cid, self.nms_thresh)
+        if not self.validation:
+            return _to_box_lists(rows, keep)
+        return _rows_to_eval_boxes(rows, keep, csel, self.conf_thresh)
+
+    def __call__(self, output: torch.Tensor) -> list[list[list[float]]]:
+        rows, keep = self.device_call(output)
+        return _to_box_lists(rows, keep)
+
+
+class MetaDevicePipeline(DevicePipeline):
     """On-device decode + per-(image, class) NMS for the META detector.
 
     The serving counterpart of the get_region_boxes_v2 + host-nms eval path
     (reference valid_ensemble.py:137-178): raw detect_forward output in
     (image-major B*n_cls rows), kept boxes out, one small copy to the host
-    per batch. Rows with more than top_k candidates above conf_thresh keep
-    the top_k highest-objectness ones (`eval_boxes` reports that instead).
-    Runs on whatever device `output` lies on.
+    per batch, ``[cx, cy, w, h, det_conf, cls_conf, class_idx]`` per kept
+    box with class_idx the row's class position. Thresholds on det*cls (the
+    sweeps' semantics); truncates like `DevicePipeline`.
     """
 
     def __init__(
@@ -178,41 +237,5 @@ class MetaDevicePipeline:
         nms_thresh: float = 0.45,
         top_k: int = 128,
     ):
-        self.anchors = region.anchor_wh
-        self.num_classes = region.num_classes
+        super().__init__(region, conf_thresh, nms_thresh, top_k, validation=True)
         self.n_cls = n_cls
-        self.conf_thresh = conf_thresh
-        self.nms_thresh = nms_thresh
-        self.top_k = top_k
-        # most candidates above conf_thresh that any row handed to
-        # `eval_boxes` has held: the sweep's margin to the buffer size
-        self.max_candidates = 0
-
-    def device_call(self, output: torch.Tensor):
-        """(rows, keep) device tensors, leading dim B*n_cls image-major."""
-        return _pipeline_v2(
-            output, self.n_cls, self.anchors, self.num_classes,
-            self.conf_thresh, self.nms_thresh, self.top_k,
-        )[:2]
-
-    def eval_boxes(self, output: torch.Tensor):
-        """Post-NMS per-(image, class) box lists in the host sweep's exact
-        format, or None when the fixed buffer truncated (host path then).
-        The candidate counts are looked at before the NMS, so a batch that
-        goes to the host path launches no NMS kernel."""
-        bsel, dsel, cconf, cid, counts, csel = _decode_rank(
-            output.float(), self.n_cls, self.anchors, self.num_classes,
-            self.conf_thresh, self.top_k,
-        )
-        most = int(counts.max()) if counts.numel() else 0
-        self.max_candidates = max(self.max_candidates, most)
-        if most > self.top_k:
-            return None
-        rows, keep = _nms_and_rows(bsel, dsel, cconf, cid, self.nms_thresh)
-        return _rows_to_eval_boxes(rows, keep, csel, self.conf_thresh)
-
-    def __call__(self, output: torch.Tensor) -> list[list[list[float]]]:
-        """B*n_cls per-(image, class) box lists, ``[cx, cy, w, h, det_conf,
-        cls_conf, class_idx]``, kept boxes in objectness-descending order."""
-        rows, keep = self.device_call(output)
-        return _to_box_lists(rows, keep)

@@ -1,9 +1,16 @@
-"""Ensemble validation sweep producing comp4_det_test_<class>.txt files.
+"""Validation sweeps producing comp4_det_test_<class>.txt result files.
 
-Flow reproduced (reference valid_ensemble.py:76-178): the learnet runs over
-EVERY support image, the codes are running-mean'd per class, optionally the
-base-class codes are spliced in from a pickle, then a fixed-code detection
-sweep decodes, ranks and NMS's every (image, class) row on the device.
+Flows reproduced (file:line in the reference):
+  * run_valid          — plain sweep, per-class files keyed by predicted
+                         class id (valid.py:12-85)
+  * run_valid_meta     — meta model with fresh per-batch support codes
+                         (valid_meta.py:13-120)
+  * run_valid_ensemble — learnet over EVERY support image, running-mean the
+                         codes per class, optional base-code splice from a
+                         pickle, then a fixed-code detection sweep
+                         (valid_ensemble.py:76-178)
+
+Each sweep decodes, ranks and NMS's every row of a batch on the device.
 
 Output rows are `imgid prob x1 y1 x2 y2` in original-image pixels, prob =
 det_conf * cls_conf, one file per class — the contract eval/voc_eval.py
@@ -11,6 +18,7 @@ consumes."""
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -18,9 +26,9 @@ import torch
 
 from ..config.settings import Settings
 from ..data.datasets import DetectionDataset, MetaDataset
-from ..ops.boxes import get_region_boxes_v2, nms
-from .detector import MetaDetector
-from .device_pipeline import MetaDevicePipeline
+from ..ops.boxes import get_region_boxes, get_region_boxes_v2, nms
+from .detector import MetaDetector, PlainDetector
+from .device_pipeline import DevicePipeline, MetaDevicePipeline
 
 CONF_THRESH = 0.005
 NMS_THRESH = 0.45
@@ -35,22 +43,68 @@ def set_float32_precision(tf32: bool = False) -> None:
     torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _device_pipe(region, n_cls: int):
-    """The sweep routes decode + per-(image, class) NMS through the
-    fixed-buffer device pipeline — the replacement for the
-    reference's host hot loop (valid_ensemble.py:137-178 ->
-    utils.py:195-290). A batch that the fixed candidate buffer
-    (FSD_DEVICE_NMS_K, default 256) would truncate is redone on the host
-    path, so result files are identical in every regime."""
+def _device_pipe(region, n_cls: int | None = None):
+    """The sweeps route decode + per-(image[, class]) NMS through the
+    fixed-buffer device pipeline — the replacement for the reference's host
+    hot loop (valid_ensemble.py:137-178 -> utils.py:195-290). A batch that
+    the fixed candidate buffer (FSD_DEVICE_NMS_K, default 256) would
+    truncate is redone on the host path (`_batch_boxes`), so result files
+    are identical in every regime."""
     top_k = int(os.environ.get("FSD_DEVICE_NMS_K", "256"))
+    if n_cls is None:
+        return DevicePipeline(region, conf_thresh=CONF_THRESH, nms_thresh=NMS_THRESH,
+                              top_k=top_k, validation=True)
     return MetaDevicePipeline(region, n_cls, conf_thresh=CONF_THRESH,
                               nms_thresh=NMS_THRESH, top_k=top_k)
+
+
+def _batch_boxes(pipe, output, host_boxes):
+    """Post-NMS box lists of one sweep batch (validation format) and whether
+    the device pipeline made them: the pipeline when its buffer holds every
+    candidate, else `host_boxes(output)` — the same boxes either way."""
+    final = pipe.eval_boxes(output)
+    if final is not None:
+        return final, True
+    return host_boxes(output), False
+
+
+def plain_host_boxes(region, output):
+    """The host path of a plain sweep batch: host decode + host NMS, one
+    box list per image."""
+    batch_boxes = get_region_boxes(
+        output, CONF_THRESH, region.num_classes, region.anchor_wh,
+        only_objectness=False, validation=True,
+    )
+    return [nms(boxes, NMS_THRESH) for boxes in batch_boxes]
+
+
+def meta_host_boxes(region, output, n_cls: int):
+    """The host path of a meta sweep batch: host decode + host NMS, one box
+    list per (image, class) row, image-major."""
+    batch_boxes = get_region_boxes_v2(
+        output, n_cls, CONF_THRESH, region.num_classes, region.anchor_wh,
+        only_objectness=False, validation=True,
+    )
+    return [nms(boxes, NMS_THRESH) for boxes in batch_boxes]
+
+
+def refuse_eval_mesh() -> None:
+    """FSD_EVAL_MESH (the JAX package's data-parallel sweep over several
+    devices) is not ported yet: refused rather than ignored."""
+    if os.environ.get("FSD_EVAL_MESH"):
+        raise NotImplementedError(
+            "FSD_EVAL_MESH is set, but the sweep over several devices is not ported yet")
 
 
 def eval_batch_size(default: int = 2) -> int:
     """The reference swept validation at batch 2 (valid.py:37); raise it
     with FSD_EVAL_BATCH."""
     return int(os.environ.get("FSD_EVAL_BATCH", default))
+
+
+def _open_result_files(prefix: str, names, outfile: str):
+    os.makedirs(prefix, exist_ok=True)
+    return [open(f"{prefix}/{outfile}{n}.txt", "w") for n in names]
 
 
 def results_prefix(weightfile: str, kind: str = "e") -> str:
@@ -71,6 +125,63 @@ def _write_boxes(fp, imgid: str, boxes, width: int, height: int):
             cls_conf = box[5 + 2 * j]
             prob = det_conf * cls_conf
             fp.write(f"{imgid} {prob:f} {x1:f} {y1:f} {x2:f} {y2:f}\n")
+
+
+def run_valid(
+    data_options: dict,
+    cfgfile: str,
+    weightfile: str,
+    settings: Settings,
+    outfile: str = "comp4_det_test_",
+    batch_size: int | None = None,
+    device="cuda",
+) -> str:
+    """Plain YOLOv2 sweep in full float32 on `device`; boxes routed to files
+    by predicted class id. Returns the results prefix."""
+    refuse_eval_mesh()
+    set_float32_precision(tf32=False)
+    batch_size = batch_size or eval_batch_size()
+    m = PlainDetector(cfgfile, weightfile, device=device)
+    prefix = results_prefix(weightfile, "e")
+    print("saving to: " + prefix)
+    ds = DetectionDataset(
+        data_options["valid"], settings, shape=(m.width, m.height),
+        shuffle=False, train=False, filter_valid=False,
+    )
+    return _plain_sweep(m, ds, prefix, outfile, settings.classes, batch_size)
+
+
+def _plain_sweep(m, ds, prefix, outfile, class_names, batch_size,
+                 stats: dict | None = None) -> str:
+    """Detection sweep of a PlainDetector over `ds` (the interface of
+    `_meta_sweep`). Every (cls_conf, cls_id) pair of a kept box goes to that
+    class's file (reference valid.py:62-80). `stats` as in `_meta_sweep`."""
+    fps = _open_result_files(prefix, class_names, outfile)
+    try:
+        pipe = _device_pipe(m.region)
+        host = functools.partial(plain_host_boxes, m.region)
+        line_id = -1
+        n_batches = n_device = 0
+        for imgs, _ in ds.batches(batch_size, drop_last=False):
+            final, done = _batch_boxes(pipe, m(imgs), host)
+            n_batches += 1
+            n_device += int(done)
+            for boxes in final:
+                line_id += 1
+                imgid = os.path.basename(ds.lines[line_id]).split(".")[0]
+                width, height = ds.image_size(line_id)
+                for box in boxes:
+                    for j in range((len(box) - 5) // 2):
+                        cls_id = int(box[6 + 2 * j])
+                        _write_boxes(fps[cls_id], imgid, [box[:5] + [box[5 + 2 * j], cls_id]],
+                                     width, height)
+        if stats is not None:
+            stats.update(batches=n_batches, device_batches=n_device,
+                         max_candidates=pipe.max_candidates)
+    finally:
+        for fp in fps:
+            fp.close()
+    return prefix
 
 
 def ensemble_class_codes(m: MetaDetector, metaset, batch_size: int = 64):
@@ -104,6 +215,7 @@ def run_valid_ensemble(
 ) -> str:
     """The whole ensemble sweep in full float32 on `device`; returns the
     results prefix."""
+    refuse_eval_mesh()
     set_float32_precision(tf32=False)
     batch_size = batch_size or eval_batch_size()
     m = MetaDetector(darknetcfg, learnetcfg, weightfile,
@@ -155,62 +267,84 @@ def run_valid_ensemble(
     )
     # the fixed codes go to the device once; per-batch conversion would
     # cost n_cls transfers on every sweep batch
-    return _meta_sweep(m, ds, prefix, outfile, m.commit_codes(codes), n_cls,
+    fixed = m.commit_codes(codes)
+    return _meta_sweep(m, ds, prefix, outfile, lambda: fixed, n_cls,
                        metaset.classes, batch_size)
 
 
-def _write_meta_batch(fps, batch_boxes, ds, bs, n_cls, line_id,
-                      apply_nms=True):
+def run_valid_meta(
+    data_options: dict,
+    darknetcfg,
+    learnetcfg,
+    weightfile: str,
+    settings: Settings,
+    outfile: str = "comp4_det_test_",
+    batch_size: int | None = None,
+    rng=None,
+    device="cuda",
+) -> str:
+    """Per-batch support codes (reference valid_meta.py): each detection
+    batch uses a fresh support batch from the (train=False) meta stream.
+    Full float32 on `device`; returns the results prefix.
+
+    The batch size is part of this protocol (codes refresh once per
+    detection batch), so FSD_EVAL_BATCH does NOT apply here: the
+    reference's batch 2 stays the default."""
+    refuse_eval_mesh()
+    set_float32_precision(tf32=False)
+    batch_size = batch_size or 2
+    m = MetaDetector(darknetcfg, learnetcfg, weightfile,
+                     metain_type=settings.metain_type, device=device)
+    prefix = results_prefix(weightfile, "e")
+    print("saving to: " + prefix)
+
+    # support selection is random per batch, as in the reference's eval
+    # loader (dataset.py:345-348); `rng` pins it for parity tests
+    metaset = MetaDataset(data_options["meta"], settings, train=False,
+                          num_replicas=1, rng=rng)
+    n_cls = len(metaset.classes)
+    meta_iter = metaset.batches(n_cls)
+    ds = DetectionDataset(
+        data_options["valid"], settings, shape=(m.width, m.height),
+        shuffle=False, train=False, filter_valid=False,
+    )
+    return _meta_sweep(m, ds, prefix, outfile, lambda: m.class_codes(*next(meta_iter)),
+                       n_cls, metaset.classes, batch_size)
+
+
+def _write_meta_batch(fps, batch_boxes, ds, bs, n_cls, line_id):
     for b in range(bs):
         line_id += 1
         imgid = os.path.basename(ds.lines[line_id]).split(".")[0]
         width, height = ds.image_size(line_id)
         for i in range(n_cls):
-            boxes = batch_boxes[b * n_cls + i]
-            if apply_nms:  # host path; device-pipeline rows arrive already NMS'd
-                boxes = nms(boxes, NMS_THRESH)
-            _write_boxes(fps[i], imgid, boxes, width, height)
+            _write_boxes(fps[i], imgid, batch_boxes[b * n_cls + i], width, height)
     return line_id
 
 
-def _meta_batch_boxes(m, output, pipe, n_cls):
-    """(box_lists, already_nms'd) for one meta sweep batch — the device
-    pipeline when its buffer suffices, else the host decode (the same boxes
-    either way; see _device_pipe)."""
-    final = pipe.eval_boxes(output)
-    if final is not None:
-        return final, True
-    return get_region_boxes_v2(
-        output, n_cls, CONF_THRESH, m.region.num_classes,
-        m.region.anchor_wh, only_objectness=False, validation=True,
-    ), False
-
-
-def _meta_sweep(m, ds, prefix, outfile, codes, n_cls, class_names, batch_size,
+def _meta_sweep(m, ds, prefix, outfile, batch_codes, n_cls, class_names, batch_size,
                 stats: dict | None = None):
-    """Fixed-code detection sweep over `ds`, which yields (images, labels)
-    from `batches(batch_size, drop_last=False)` and answers `lines[i]` (a
-    name whose basename is the image id) and `image_size(i)`. Returns the
-    results prefix. A `stats` dict, when given, receives the number of
-    `batches`, of `device_batches` (those the device pipeline finished
-    without handing the batch to the host path) and `max_candidates` (the
-    most candidates above the threshold in any (image, class) row, to hold
-    against the buffer size)."""
-    os.makedirs(prefix, exist_ok=True)
-    fps = [open(f"{prefix}/{outfile}{n}.txt", "w") for n in class_names]
+    """Meta detection sweep over `ds`, which yields (images, labels) from
+    `batches(batch_size, drop_last=False)` and answers `lines[i]` (a name
+    whose basename is the image id) and `image_size(i)`; `batch_codes()`
+    gives the class codes of each batch, called once per batch before its
+    forward (fixed codes, or a fresh support batch's). Returns the results
+    prefix. A `stats` dict, when given, receives the number of `batches`, of
+    `device_batches` (those the device pipeline finished without handing the
+    batch to the host path) and `max_candidates` (the most candidates above
+    the threshold in any row, to hold against the buffer size)."""
+    fps = _open_result_files(prefix, class_names, outfile)
     try:
         pipe = _device_pipe(m.region, n_cls)
+        host = functools.partial(meta_host_boxes, m.region, n_cls=n_cls)
         line_id = -1
         n_batches = n_device = 0
         for imgs, _ in ds.batches(batch_size, drop_last=False):
-            output = m.detect(imgs, codes)
-            batch_boxes, done = _meta_batch_boxes(m, output, pipe, n_cls)
+            output = m.detect(imgs, batch_codes())
+            batch_boxes, done = _batch_boxes(pipe, output, host)
             n_batches += 1
             n_device += int(done)
-            line_id = _write_meta_batch(
-                fps, batch_boxes, ds, imgs.shape[0], n_cls, line_id,
-                apply_nms=not done,
-            )
+            line_id = _write_meta_batch(fps, batch_boxes, ds, imgs.shape[0], n_cls, line_id)
         if stats is not None:
             stats.update(batches=n_batches, device_batches=n_device,
                          max_candidates=pipe.max_candidates)

@@ -94,6 +94,12 @@ def decode_region_output(
     return {"boxes": boxes, "det_conf": det_conf, "cls_logits": o[..., 5:]}
 
 
+def region_scores_v1(decoded: dict) -> dict:
+    """Per-anchor class softmax over the nC channels (reference
+    utils.py:140) — the plain YOLOv2 detector's score normalization."""
+    return {**decoded, "cls_confs": torch.softmax(decoded["cls_logits"], dim=-1)}
+
+
 def region_scores_v2(decoded: dict, n_cls: int) -> dict:
     """Cross-copy softmax: class confidence normalized ACROSS the n_cls
     batch copies of each anchor (reference utils.py:212-219) — the meta
@@ -166,6 +172,19 @@ def filter_boxes(
             blist.append(box)
         all_boxes.append(blist)
     return all_boxes
+
+
+def get_region_boxes(
+    output: torch.Tensor,
+    conf_thresh: float,
+    num_classes: int,
+    anchors: tuple[tuple[float, float], ...],
+    only_objectness: bool = True,
+    validation: bool = False,
+):
+    """Plain-YOLOv2 decode: reference utils.py:112-193 contract."""
+    decoded = decode_region_output(output, anchors, num_classes)
+    return filter_boxes(region_scores_v1(decoded), conf_thresh, only_objectness, validation)
 
 
 def get_region_boxes_v2(

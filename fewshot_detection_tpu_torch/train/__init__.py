@@ -1,5 +1,5 @@
 from .optim import init_momentum, lr_schedule, neg_ratio_lr_factor, sgd_update
-from .trainer import MetaTrainer
+from .trainer import MetaTrainer, PlainTrainer
 
 __all__ = [
     "init_momentum",
@@ -7,4 +7,5 @@ __all__ = [
     "neg_ratio_lr_factor",
     "sgd_update",
     "MetaTrainer",
+    "PlainTrainer",
 ]

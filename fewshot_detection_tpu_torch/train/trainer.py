@@ -1,14 +1,15 @@
-"""Episodic meta train step with replica-group semantics, on one device.
+"""Train steps (meta + plain) with replica-group semantics, on one device.
 
-Counterpart of the JAX package's `train/trainer.py:MetaTrainer`. The step
-takes inputs with a leading replica-group axis R. The JAX package vmaps the
-per-group episode over R and shards that axis one group per device; here
+Counterparts of the JAX package's `train/trainer.py:MetaTrainer` and
+`PlainTrainer`. A step takes inputs with a leading replica-group axis R.
+The JAX package vmaps the per-group episode over R and shards that axis one
+group per device; here
 the groups run one after another on one device: each group normalizes with
 its OWN batch statistics, the groups' losses are summed and differentiated
 once, the metrics are summed, and the new BN running statistics are
 AVERAGED over the groups. This reproduces the reference's DataParallel
-layout — each replica gets its own support batch with one sample per class
-(train_meta.py:137-141, dataset.py:348).
+layout — for the meta step each replica gets its own support batch with one
+sample per class (train_meta.py:137-141, dataset.py:348).
 
 Parameters and momentum are updated IN PLACE (the JAX package donates its
 buffers instead): `step` returns the trees it was given. Every leaf except
@@ -22,7 +23,9 @@ import torch
 
 from ..eval.detector import resolve_device
 from ..models import meta as meta_mod
-from ..ops.region_loss import region_loss_v2
+from ..models.darknet import apply_network
+from ..models.spec import NetSpec
+from ..ops.region_loss import region_loss, region_loss_v2
 from .optim import sgd_update, tree_leaves_with_path, tree_map, tree_map_with_path
 
 
@@ -61,62 +64,31 @@ def _sum_metrics(per_group: list[dict]) -> dict:
     return {k: torch.stack([m[k] for m in per_group]).sum(dim=0) for k in per_group[0]}
 
 
-class MetaTrainer:
-    """Episodic meta-detector training step.
+class _GroupTrainer:
+    """What both trainers share: the R groups of a batch one after another,
+    one backward over the summed loss, in-place SGD and the BN merge.
+    A subclass names its batch keys (`_KEYS`, the images first), its
+    per-group `_episode_loss(params, *group_tensors, seen)` -> (loss,
+    bn_updates, metrics), whether weight decay reaches BN affine and biases,
+    and how the averaged BN updates are written back."""
 
-    Step inputs (R = replica groups, b = per-group detection batch), numpy
-    arrays or tensors on any device:
-      x      (R, b, H, W, 3)        detection images
-      metax  (R, n_cls, Hm, Wm, Cm) support images (one per class, in order)
-      mask   (R, n_cls, hm, wm, 1)  support masks
-      target (R, b, n_cls, 50, 5)   per-class-binned labels
-      keep   (R, b*n_cls)           neg-filter weights (host-sampled)
-      seen   host int               sample counter (warm-up switch)
-      lr     host float             current learning rate (already /batch)
-    """
+    _KEYS: tuple[str, ...] = ()
+    _DECAY_BN_AND_BIAS = True
 
-    def __init__(
-        self,
-        spec: meta_mod.MetaSpec,
-        *,
-        momentum: float = 0.9,
-        weight_decay: float = 0.0,
-        metain_type: int = 2,
-        fuse: bool = True,
-        remat: bool = False,
-        clip_norm: float = 0.0,
-        image_dtype: torch.dtype = torch.float32,
-        warmup_seen: int = 12800,
-        device="cuda",
-    ):
+    def __init__(self, *, momentum, weight_decay, remat, clip_norm, image_dtype,
+                 warmup_seen, device):
         self.device = resolve_device(device)
-        self.spec = spec
-        self.region = spec.region
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
         # coord warm-up threshold (settings.warmup_seen; reference hardcodes
         # 12800, region_loss.py:70-79)
         self.warmup_seen = warmup_seen
-        self.metain_type = metain_type
-        self.fuse = fuse
         # compute dtype that uint8-shipped inputs decode to (FSD_INPUT_U8)
         self.image_dtype = image_dtype
         # keep conv outputs and BN batch statistics, recompute the
         # normalize/activation epilogues in the backward
         self.remat = remat
-
-    def _episode_loss(self, params, x, metax, mask, target, keep, seen):
-        x, metax, mask = _decode_images((x, metax, mask), self.image_dtype)
-        n_cls = metax.shape[0]
-        y, aux = meta_mod.forward(
-            self.spec, params, x, metax, mask,
-            metain_type=self.metain_type, train=True, fuse=self.fuse, remat=self.remat,
-        )
-        loss, metrics = region_loss_v2(
-            y, target, keep, seen, self.region, n_cls, warmup_seen=self.warmup_seen
-        )
-        return loss, aux["bn_updates"], metrics
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, non_blocking=True)
@@ -126,17 +98,13 @@ class MetaTrainer:
         gradient tree of params' shape, per-group bn_updates, summed
         metrics). A leaf the loss does not reach, and the BN running
         statistics, get zero gradients."""
-        x, metax, mask, target, keep = (
-            self._to_device(batch[k]) for k in ("x", "metax", "mask", "target", "keep")
-        )
+        tensors = [self._to_device(batch[k]) for k in self._KEYS]
         paths, leaves = zip(*(
             (p, t) for p, t in tree_leaves_with_path(params) if t.requires_grad
         ))
         losses, bns, metrics = [], [], []
-        for r in range(x.shape[0]):
-            loss, bn, m = self._episode_loss(
-                params, x[r], metax[r], mask[r], target[r], keep[r], seen
-            )
+        for r in range(tensors[0].shape[0]):
+            loss, bn, m = self._episode_loss(params, *(t[r] for t in tensors), seen)
             losses.append(loss)
             bns.append(bn)
             metrics.append({k: v.detach() for k, v in m.items()})
@@ -155,11 +123,64 @@ class MetaTrainer:
         sgd_update(
             params, grads, mom, lr,
             momentum=self.momentum, weight_decay=self.weight_decay,
-            decay_bn_and_bias=True,  # train_meta.py decays everything
-            clip_norm=self.clip_norm,
+            decay_bn_and_bias=self._DECAY_BN_AND_BIAS, clip_norm=self.clip_norm,
         )
-        apply_meta_bn_updates(params, _mean_over_groups(bns))
+        self._apply_bn(params, _mean_over_groups(bns))
         return params, mom, metrics
+
+
+class MetaTrainer(_GroupTrainer):
+    """Episodic meta-detector training step.
+
+    Step inputs (R = replica groups, b = per-group detection batch), numpy
+    arrays or tensors on any device:
+      x      (R, b, H, W, 3)        detection images
+      metax  (R, n_cls, Hm, Wm, Cm) support images (one per class, in order)
+      mask   (R, n_cls, hm, wm, 1)  support masks
+      target (R, b, n_cls, 50, 5)   per-class-binned labels
+      keep   (R, b*n_cls)           neg-filter weights (host-sampled)
+      seen   host int               sample counter (warm-up switch)
+      lr     host float             current learning rate (already /batch)
+    Weight decay reaches every parameter (train_meta.py decays everything).
+    """
+
+    _KEYS = ("x", "metax", "mask", "target", "keep")
+
+    def __init__(
+        self,
+        spec: meta_mod.MetaSpec,
+        *,
+        momentum: float = 0.9,
+        weight_decay: float = 0.0,
+        metain_type: int = 2,
+        fuse: bool = True,
+        remat: bool = False,
+        clip_norm: float = 0.0,
+        image_dtype: torch.dtype = torch.float32,
+        warmup_seen: int = 12800,
+        device="cuda",
+    ):
+        super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
+                         clip_norm=clip_norm, image_dtype=image_dtype,
+                         warmup_seen=warmup_seen, device=device)
+        self.spec = spec
+        self.region = spec.region
+        self.metain_type = metain_type
+        self.fuse = fuse
+
+    def _episode_loss(self, params, x, metax, mask, target, keep, seen):
+        x, metax, mask = _decode_images((x, metax, mask), self.image_dtype)
+        n_cls = metax.shape[0]
+        y, aux = meta_mod.forward(
+            self.spec, params, x, metax, mask,
+            metain_type=self.metain_type, train=True, fuse=self.fuse, remat=self.remat,
+        )
+        loss, metrics = region_loss_v2(
+            y, target, keep, seen, self.region, n_cls, warmup_seen=self.warmup_seen
+        )
+        return loss, aux["bn_updates"], metrics
+
+    _apply_bn = staticmethod(apply_meta_bn_updates)
 
     def multi_step(self, params, mom, batches: dict, seens, lrs):
         """N train steps, one after another: the same math as N step()
@@ -177,3 +198,50 @@ class MetaTrainer:
             per_step.append(metrics)
         return params, mom, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
+
+class PlainTrainer(_GroupTrainer):
+    """Baseline YOLOv2 training step (reference train.py:126-225).
+
+    Step inputs (R = replica groups, b = per-group batch), numpy arrays or
+    tensors on any device: x (R, b, H, W, 3), target (R, b, 50, 5), keep
+    (R, b); seen and lr as for MetaTrainer. Weight decay exempts BN affine
+    and biases (train.py:132-138). Every training BN goes through the
+    `bn_sums` kernels, one forward and one backward launch a BN layer and
+    group."""
+
+    _KEYS = ("x", "target", "keep")
+    _DECAY_BN_AND_BIAS = False
+
+    def __init__(
+        self,
+        spec: NetSpec,
+        *,
+        momentum: float = 0.9,
+        weight_decay: float = 0.0,
+        zero_tcls: bool = False,
+        remat: bool = False,
+        s2d: bool = False,
+        clip_norm: float = 0.0,
+        image_dtype: torch.dtype = torch.float32,
+        warmup_seen: int = 12800,
+        device="cuda",
+    ):
+        if s2d:
+            raise NotImplementedError("the space-to-depth stem (s2d=True) is not ported yet")
+        super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
+                         clip_norm=clip_norm, image_dtype=image_dtype,
+                         warmup_seen=warmup_seen, device=device)
+        self.spec = spec
+        self.region = spec.region
+        self.zero_tcls = zero_tcls
+
+    def _episode_loss(self, params, x, target, keep, seen):
+        (x,) = _decode_images((x,), self.image_dtype)
+        y, aux = apply_network(self.spec, params, x, train=True, remat=self.remat)
+        loss, metrics = region_loss(
+            y, target, keep, seen, self.region, zero_tcls=self.zero_tcls,
+            warmup_seen=self.warmup_seen,
+        )
+        return loss, aux["bn_updates"], metrics
+
+    _apply_bn = staticmethod(apply_bn_updates)

@@ -2,10 +2,13 @@
 """Where a full-width training step of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_train_profile.py [--dtype float32|bfloat16] [--steps N] [--remat]
+                                           [--plain]
 
 Needs a CUDA device. Builds the same step as `chip_smoke.py`'s train phase
 (cfg/darknet_dynamic.cfg + cfg/reweighting_net.cfg, 416x416, batch 64, 15-way
-support set, the tracked checkpoint, episodes painted from the seed), warms it
+support set, the tracked checkpoint, episodes painted from the seed) or, with
+`--plain`, as its plain_train phase (PlainTrainer on cfg/yolo-voc.cfg,
+416x416, batch 64, seeded weights, batches painted from the seed), warms it
 up, times N steps untraced on the host's clock, then traces N more with
 `torch.profiler` (device activity only) and prints one JSON line: the
 host-clock time of an untraced step, the device time summed over the traced
@@ -63,6 +66,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--plain", action="store_true", help="the plain YOLOv2 step instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -72,23 +76,35 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
-    dblocks, lblocks = parse_cfg(cs.DARKNET_CFG), parse_cfg(cs.LEARNET_CFG)
-    spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
-    sched = cs.schedule_from_cfg(dblocks[0], cs.TRAIN_NEG_RATIO, cs.TRAIN_N_CLS)
     dtype = getattr(torch, args.dtype)
-    params, header = cs.load_train_state(spec)
+    if args.plain:
+        setup = cs.PlainTrainSetup(args.seed)
+        batch_size, lr = setup.sched.batch_size, setup.sched.lr
+        params = setup.load_params()
+        trainer = setup.make_trainer(dtype, remat=args.remat)
+        episodes = [cs.make_plain_episode(args.seed + i, batch_size, args.dtype)
+                    for i in range(2 + 2 * args.steps)]
+        seen = 0
+    else:
+        dblocks, lblocks = parse_cfg(cs.DARKNET_CFG), parse_cfg(cs.LEARNET_CFG)
+        spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
+        sched = cs.schedule_from_cfg(dblocks[0], cs.TRAIN_NEG_RATIO, cs.TRAIN_N_CLS)
+        batch_size = sched.batch_size
+        params, header = cs.load_train_state(spec)
+        trainer = MetaTrainer(spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
+                              metain_type=2, image_dtype=dtype, remat=args.remat, device="cuda")
+        episodes = [cs.make_episode(args.seed + i, batch_size, cs.TRAIN_N_CLS, 416, args.dtype)
+                    for i in range(2 + 2 * args.steps)]
+        seen, processed = header.seen, header.seen // batch_size
+
+        def lr(i):
+            return sched.lr(processed + i)
     mom = init_momentum(params)
-    trainer = MetaTrainer(spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
-                          metain_type=2, image_dtype=dtype, remat=args.remat, device="cuda")
-    episodes = [cs.make_episode(args.seed + i, sched.batch_size, cs.TRAIN_N_CLS, 416, args.dtype)
-                for i in range(2 + 2 * args.steps)]
-    seen, processed = header.seen, header.seen // sched.batch_size
 
     def step(i):
         nonlocal params, mom, seen
-        seen += sched.batch_size
-        params, mom, metrics = trainer.step(params, mom, episodes[i], seen=seen,
-                                            lr=sched.lr(processed + i))
+        seen += batch_size
+        params, mom, metrics = trainer.step(params, mom, episodes[i], seen=seen, lr=lr(i))
         return cs.format_loss_line(seen, metrics)  # the step's one host sync
 
     n = args.steps
@@ -123,8 +139,8 @@ def main() -> int:
     kernels.sort(reverse=True)
     print(smi, flush=True)
     print(json.dumps({
-        "card": smi, "dtype": args.dtype, "remat": args.remat, "steps_traced": n,
-        "batch": sched.batch_size, "wall_ms_per_step": untraced_ms / n,
+        "card": smi, "step": "plain" if args.plain else "meta", "dtype": args.dtype,
+        "remat": args.remat, "steps_traced": n, "batch": batch_size, "wall_ms_per_step": untraced_ms / n,
         "wall_ms_per_step_traced": traced_ms / n, "device_ms_per_step": device_ms / n,
         "device_idle_share": max(0.0, 1.0 - device_ms / untraced_ms) if device_ms else None,
         "kernel_launches_per_step": launches / n,

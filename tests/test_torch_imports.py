@@ -13,9 +13,13 @@ from torch_port_util import REPO
 PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 
 
+ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.py",
+                "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
+                "train_torch.py")
+
+
 def _port_sources():
-    files = [os.path.join(REPO, n) for n in
-             ("chip_smoke.py", "valid_ensemble_torch.py", "train_meta_torch.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", *ROOT_SCRIPTS)]
     for root, _, names in os.walk(PKG):
         if "_build" in root or "__pycache__" in root:
             continue
@@ -28,15 +32,36 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "import sys, pkgutil, importlib\n"
         "import fewshot_detection_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "assert len(names) >= 33, names\n"
+        "assert len(names) >= 35, names\n"
         "for n in ('ops.bn_sums', 'ops._build', 'ops.region_loss', 'train.optim', 'train.trainer',\n"
-        "          'cli.train_meta_cli', 'data.augment', 'data.loader', 'utils.logging'):\n"
+        "          'cli.train_meta_cli', 'data.augment', 'data.loader', 'utils.logging',\n"
+        "          'eval.harness', 'cli.train_plain_cli'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"
         "       or k == 'fewshot_detection_tpu' or k.startswith('fewshot_detection_tpu.')]\n"
         "assert not bad, bad\n"
         "print('clean', len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
+
+
+def test_root_scripts_import_no_jax_no_pil_no_jax_package():
+    """Every root script of the port, imported as a module (its work sits
+    under the __main__ check), with PIL and cv2 blocked."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['cv2'] = None\n"
+        f"for n in {ROOT_SCRIPTS!r}:\n"
+        "    runpy.run_path(n, run_name='not_main')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')\n"
+        "       or k == 'fewshot_detection_tpu' or k.startswith('fewshot_detection_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
@@ -142,3 +167,33 @@ def test_entry_points_default_to_cuda_and_raise_without_one():
         MetaTrainer(m.spec)
     with pytest.raises(RuntimeError):
         train_meta_cli.main("no.data", *cfgs, "no.weights")  # refused before any file is read
+
+
+def test_plain_family_entry_points_default_to_cuda_and_raise_without_one():
+    import inspect
+    import runpy
+
+    import torch
+
+    from fewshot_detection_tpu_torch.cli import train_plain_cli
+    from fewshot_detection_tpu_torch.eval import valid
+    from fewshot_detection_tpu_torch.eval.detector import PlainDetector
+    from fewshot_detection_tpu_torch.train import PlainTrainer
+
+    scripts = {n: runpy.run_path(os.path.join(REPO, n), run_name="not_main")
+               for n in ("detect_torch.py", "eval_torch.py", "recall_torch.py")}
+    defaults = [PlainDetector.__init__, PlainTrainer.__init__, train_plain_cli.main,
+                valid.run_valid, valid.run_valid_meta, valid.run_valid_ensemble,
+                scripts["eval_torch.py"]["main"], scripts["recall_torch.py"]["main"],
+                *scripts["detect_torch.py"]["VARIANTS"].values()]
+    for fn in defaults:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot be shown")
+    plain = os.path.join(REPO, "cfg", "tiny-yolo-voc.cfg")
+    with pytest.raises(RuntimeError):
+        PlainDetector(plain)
+    with pytest.raises(RuntimeError):
+        PlainTrainer(PlainDetector(plain, device="cpu").spec)
+    with pytest.raises(RuntimeError):
+        train_plain_cli.main("no.data", plain, "no.weights")  # refused before any file is read

@@ -26,7 +26,7 @@ from fewshot_detection_tpu_torch.models.spec import build_spec
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows
 
 from synth import make_voc_like
-from torch_port_util import REPO, cfg, randomize_bn
+from torch_port_util import REPO, assert_results_close, cfg, in_env, randomize_bn, read_results
 
 TOL = 1e-4
 
@@ -59,24 +59,7 @@ def ws(tmp_path_factory):
 
 
 def _in_env(ws, env, fn):
-    cwd = os.getcwd()
-    os.chdir(ws["root"])
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        return fn()
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        os.chdir(cwd)
-
-
-def _read(prefix, tag):
-    files = sorted(fn for fn in os.listdir(prefix) if fn.startswith(tag))
-    return {fn[len(tag):]: open(os.path.join(prefix, fn)).read().splitlines() for fn in files}
+    return in_env(ws["root"], env, fn)
 
 
 def _run_torch(ws, tag, env=None, **kw):
@@ -85,7 +68,7 @@ def _run_torch(ws, tag, env=None, **kw):
     prefix = _in_env(ws, env, lambda: os.path.abspath(t_valid.run_valid_ensemble(
         data_options, darknet, learnet, ws["weights"], settings,
         outfile=tag, device="cpu", **kw)))
-    return prefix, _read(prefix, tag)
+    return prefix, read_results(prefix, tag)
 
 
 @pytest.fixture(scope="module")
@@ -102,27 +85,21 @@ def test_result_files_equal_the_jax_packages(ws, torch_files):
     prefix = _in_env(ws, {"FSD_EVAL_BATCH": "4"}, lambda: os.path.abspath(
         j_valid.run_valid_ensemble(data_options, darknet, learnet, ws["weights"],
                                    settings, outfile="jax_det_")))
-    want = _read(prefix, "jax_det_")
-    assert sorted(got) == sorted(want) and len(got) == 20
-    n_lines = 0
-    for name in want:
-        assert len(got[name]) == len(want[name]), name
-        for g, w in zip(got[name], want[name]):
-            gp, wp = g.split(), w.split()
-            assert gp[0] == wp[0] and len(gp) == len(wp) == 6
-            np.testing.assert_allclose([float(v) for v in gp[1:]], [float(v) for v in wp[1:]],
-                                       rtol=TOL, atol=TOL)
-            n_lines += 1
+    want = read_results(prefix, "jax_det_")
+    assert len(got) == 20
+    n_lines = assert_results_close(got, want, TOL)
     assert n_lines > 100, "too few detections for the comparison to mean anything"
 
 
-@pytest.mark.parametrize("top_k", ["1", "8"], ids=["host_path", "truncated_buffer"])
-def test_result_files_identical_in_every_regime(ws, torch_files, top_k):
-    """A buffer of one slot, which hands every batch to the host path, or one
-    so small that some rows overflow it, writes the same files as the device
-    pipeline."""
+@pytest.mark.parametrize("env", [{"FSD_DEVICE_NMS_K": "1"}, {"FSD_DEVICE_NMS_K": "8"}],
+                         ids=["host_path", "truncated_buffer"])
+def test_result_files_identical_in_every_regime(ws, torch_files, env):
+    """A buffer of one slot, which hands every batch to the host path, or
+    one so small that some rows overflow it, writes the same files as the
+    device pipeline."""
     _, want = torch_files
-    _, got = _run_torch(ws, f"alt{top_k}_det_", {"FSD_DEVICE_NMS_K": top_k})
+    tag = "alt" + "".join(env.values())
+    _, got = _run_torch(ws, f"{tag}_det_", env)
     assert got == want
 
 

@@ -43,3 +43,47 @@ def to_jnp_tree(params):
 
 def t(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def in_env(root, env, fn):
+    """fn() run from directory `root` with the variables of `env` set (a
+    value of None unsets one); both restored afterwards."""
+    cwd = os.getcwd()
+    os.chdir(root)
+    old = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        os.chdir(cwd)
+
+
+def read_results(prefix, tag):
+    """{class name: lines} of the result files `<prefix>/<tag><class>.txt`."""
+    files = sorted(fn for fn in os.listdir(prefix) if fn.startswith(tag))
+    return {fn[len(tag):]: open(os.path.join(prefix, fn)).read().splitlines() for fn in files}
+
+
+def assert_results_close(got, want, tol):
+    """Same files, same lines (image ids, number and order of boxes); the
+    printed floats within `tol`. Returns the number of lines compared."""
+    assert sorted(got) == sorted(want)
+    n_lines = 0
+    for name in want:
+        assert len(got[name]) == len(want[name]), name
+        for g, w in zip(got[name], want[name]):
+            gp, wp = g.split(), w.split()
+            assert gp[0] == wp[0] and len(gp) == len(wp) == 6
+            np.testing.assert_allclose([float(v) for v in gp[1:]], [float(v) for v in wp[1:]],
+                                       rtol=tol, atol=tol)
+            n_lines += 1
+    return n_lines
