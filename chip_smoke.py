@@ -63,6 +63,32 @@ phases, each printing JSON lines:
            train_plain_cli derives lr and weight decay, from the same seeded
            weights on images painted from the seed: as `train`, with 22 + 22
            `bn_sums` launches a step; then `bn_sums_step` for its 22 layers
+  native   `g++ --version` and a probe of a few lines that includes jpeglib.h
+           and png.h, linked with -ljpeg -lpng (the host's system libraries,
+           checked before the port's code runs); when it builds and runs:
+           the port's native image library built with g++, PNGs written here
+           with zlib + struct decoding bit-equal to the arrays written, and
+           the pthread batch assembler's images/s on 64 VOC-sized images
+           decoded, augmented and resized to 416
+  ckpt     full-state checkpoints of the meta step (the `train` phase's
+           cfgs, checkpoint, batch 64, 15-way, bfloat16): 2 steps, a
+           synchronous save, an async save (FSD_ASYNC_CKPT=1) with a step
+           launched while it writes, both restored into a fresh tree on the
+           card bit-equal to host copies taken at the saves; a torch.profiler
+           trace of 3 steps (utils/profiling.trace) whose summary
+           (utils/trace_summary) names the bn_sums kernels, 29 + 29 a step
+  files    the slice's path on image files, when the probe passed: a VOC
+           devkit painted from the seed (PNG images at VOC sizes, XML
+           annotations, 20 classes), data/prep.py's labels, labels_1c,
+           10-shot box and image fewlists and traindict, few-shot tuning
+           through train_meta_cli.main from the tracked checkpoint at the
+           cfgs' width and batch in bfloat16 with FSD_NATIVE=1
+           FSD_NATIVE_BATCH=1 FSD_WORKERS=2 FSD_ORBAX_DIR FSD_ASYNC_CKPT=1
+           FSD_PROFILE_DIR for 2 epochs, a second run resumed to 3 epochs from
+           the newest checkpoint, then run_valid_ensemble on the tuned
+           .weights over the painted test list (FSD_NATIVE=1, result files for
+           20 classes through the NMS kernel) and voc_eval's mAP (a number for
+           painted data, not a quality claim)
 
 `--phases` runs a subset (for finding faults); the result line is printed
 only when every phase ran. Then the card's name and power limit, one JSON
@@ -76,17 +102,25 @@ not printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
 import os
+import random
+import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
+from fewshot_detection_tpu_torch.cli import train_meta_cli
+from fewshot_detection_tpu_torch.cli.common import resolve_configs
 from fewshot_detection_tpu_torch.cli.train_meta_cli import make_episode_batch, schedule_from_cfg
 from fewshot_detection_tpu_torch.cli.train_plain_cli import (
     make_plain_batch,
@@ -94,6 +128,8 @@ from fewshot_detection_tpu_torch.cli.train_plain_cli import (
 )
 from fewshot_detection_tpu_torch.config import parse_cfg
 from fewshot_detection_tpu_torch.config.settings import VOC_CLASSES
+from fewshot_detection_tpu_torch.data import prep
+from fewshot_detection_tpu_torch.data.augment import sample_augment_params
 from fewshot_detection_tpu_torch.eval import valid
 from fewshot_detection_tpu_torch.eval.detector import MetaDetector, PlainDetector
 from fewshot_detection_tpu_torch.eval.device_pipeline import (
@@ -105,7 +141,15 @@ from fewshot_detection_tpu_torch.models.convert import from_jax_params, require_
 from fewshot_detection_tpu_torch.models.darknet import init_params
 from fewshot_detection_tpu_torch.models.meta import MetaSpec, init_meta_params
 from fewshot_detection_tpu_torch.models.spec import build_spec
-from fewshot_detection_tpu_torch.models.weights_io import load_weights_bf16_gz, save_weights
+from fewshot_detection_tpu_torch.eval.voc_eval import do_python_eval
+from fewshot_detection_tpu_torch.models.weights_io import (
+    load_weights_bf16_gz,
+    read_bf16_gz,
+    save_weights,
+)
+from fewshot_detection_tpu_torch.native import NativeImagePipe
+from fewshot_detection_tpu_torch.native import build_library as build_native_library
+from fewshot_detection_tpu_torch.native.loader import library_path as native_library_path
 from fewshot_detection_tpu_torch.ops import _build, bn_sums as bn_mod, layers, nms_device
 from fewshot_detection_tpu_torch.ops.bn_sums import (
     vector_width,
@@ -117,8 +161,16 @@ from fewshot_detection_tpu_torch.ops.bn_sums import (
 from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes, nms
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
 from fewshot_detection_tpu_torch.train import MetaTrainer, PlainTrainer, init_momentum
-from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path
+from fewshot_detection_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_train_state,
+    save_train_state,
+    wait_for_saves,
+)
+from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path, tree_map
 from fewshot_detection_tpu_torch.utils import format_loss_line
+from fewshot_detection_tpu_torch.utils.profiling import trace
+from fewshot_detection_tpu_torch.utils.trace_summary import find_trace_files, load_events, summarize
 
 import detect_torch
 
@@ -541,18 +593,30 @@ def check_workspace_reuse(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> 
               f"bn_sums: launches {tag} differ at {tuple(x.shape)} {x.dtype}")
 
 
-def kernels_of_one_call(fn) -> list:
+# The profiler now and then hands back a trace with no device event at all
+# (seen once on an H100, for one short call whose output was checked). Such a
+# trace says nothing of the call, so it is taken again, up to this many times;
+# a trace that holds any device event is the answer.
+TRACE_ATTEMPTS = 3
+
+
+def kernels_of_one_call(fn) -> tuple[list, int]:
     """Names of the kernels, copies and memsets that one fn() puts on the
-    card, as the profiler's device trace lists them."""
+    card, as the profiler's device trace lists them, and the number of
+    traces it took to get a trace with a device event in it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [ev.key for ev in prof.key_averages() if ev.device_type.name == "CUDA"
-            for _ in range(ev.count)]
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages() if ev.device_type.name == "CUDA"
+                 for _ in range(ev.count)]
+        if names:
+            break
+    return names, attempt
 
 
 def time_bn_sums(x: torch.Tensor) -> dict:
@@ -601,10 +665,12 @@ def phase_bn_kernels(seed: int) -> dict:
             res = compare_bn_sums(x, seed + i)
             check(res["layout_copies"] == 0, "a contiguous input was copied")
             if (m, c) in ((64 * 13 * 13, 1024), (4099, 3)):  # one kernel a call, either path
-                names = kernels_of_one_call(lambda: bn_mod._launch_forward(x))
+                names, traces = kernels_of_one_call(lambda: bn_mod._launch_forward(x))
                 check(len(names) == 1 and f"bn_sums_{res['path'][:3]}" in names[0],
-                      f"one {res['path']} forward at {(m, c)} {name} put {names} on the card")
+                      f"one {res['path']} forward at {(m, c)} {name} put {names} on the card"
+                      f" ({traces} traces)")
                 res["kernels_of_a_call"] = names
+                res["traces_taken"] = traces
             if (m, c) in BN_MAIN_SHAPES:  # the smaller two fit the L2 cache, as behind a conv
                 times.setdefault(name, {})[f"{m}x{c}"] = time_bn_sums(x)
             cases.append(res)
@@ -1280,6 +1346,481 @@ def phase_bn_step(path: str, shapes: list, n_layers: int, seed: int) -> None:
     emit("bn_sums_step", path=path, layers=len(shapes), **report)
 
 
+# ---------------------------------------------------------------------------
+# native / ckpt / files: few-shot tuning and eval on image files
+# ---------------------------------------------------------------------------
+
+# VOC image sizes (width, height): the common shapes of VOC2007's JPEGImages
+VOC_SIZES = ((500, 375), (375, 500), (500, 333), (333, 500), (500, 366), (486, 500))
+PROBE_SOURCE = r"""
+#include <cstdio>
+#include <jpeglib.h>
+#include <png.h>
+int main() {
+  jpeg_decompress_struct cinfo;
+  jpeg_error_mgr jerr;
+  cinfo.err = jpeg_std_error(&jerr);
+  jpeg_create_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  std::printf("libjpeg %d, libpng %s\n", JPEG_LIB_VERSION, png_get_libpng_ver(nullptr));
+  return 0;
+}
+"""
+# the files phase: the devkit's size and the tuning run's shape
+FILES_TRAIN_IMAGES = 200
+FILES_TEST_IMAGES = 32
+FILES_SHOT = 10
+FILES_EPOCHS = (2, 3)  # the first run, then the resumed one
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """An 8-bit RGB (H, W, 3) or gray (H, W) PNG, written with zlib and
+    struct only (no image library on the card's host)."""
+    h, w = arr.shape[:2]
+    rows = np.ascontiguousarray(arr, np.uint8).reshape(h, -1)
+    raw = np.hstack([np.zeros((h, 1), np.uint8), rows]).tobytes()  # filter 0 a row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if arr.ndim == 3 else 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def paint_voc_image(rng: np.random.Generator, first_cls: int):
+    """A VOC-sized image: dark noise (the BN statistics of the checkpoint
+    need texture, see make_episode) with one to three bright rectangles;
+    the first is of class `first_cls`. Returns (array, [(cls, x1, y1, x2,
+    y2)] in VOC's 1-based pixel corners)."""
+    w, h = VOC_SIZES[int(rng.integers(len(VOC_SIZES)))]
+    img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+    objs = []
+    for j in range(int(rng.integers(1, 4))):
+        cls = first_cls if j == 0 else int(rng.integers(20))
+        bw, bh = int(rng.uniform(0.2, 0.5) * w), int(rng.uniform(0.2, 0.5) * h)
+        x1, y1 = int(rng.integers(1, w - bw)), int(rng.integers(1, h - bh))
+        img[y1 - 1:y1 + bh - 1, x1 - 1:x1 + bw - 1] = rng.integers(120, 256, 3)
+        objs.append((cls, x1, y1, x1 + bw - 1, y1 + bh - 1))
+    return img, objs
+
+
+def paint_devkit(root: str, seed: int) -> str:
+    """VOCdevkit/VOC2007 painted from the seed: `FILES_TRAIN_IMAGES` train
+    and `FILES_TEST_IMAGES` test images at VOC sizes (PNG data; the files
+    carry VOC's .jpg names, and the native decoder reads the format from the
+    file's first bytes), XML annotations over the 20 VOC classes, and the
+    ImageSets lists. Returns the devkit path."""
+    rng = np.random.default_rng(seed)
+    voc = os.path.join(root, "VOCdevkit", "VOC2007")
+    for d in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(voc, d), exist_ok=True)
+    sets = {"train": [], "test": []}
+    present = {s: {c: [] for c in VOC_CLASSES} for s in sets}
+    for i in range(FILES_TRAIN_IMAGES + FILES_TEST_IMAGES):
+        split = "train" if i < FILES_TRAIN_IMAGES else "test"
+        imgid = f"{i:06d}"
+        img, objs = paint_voc_image(rng, i % 20)
+        write_png(os.path.join(voc, "JPEGImages", imgid + ".jpg"), img)
+        xml = "".join(
+            f"<object><name>{VOC_CLASSES[c]}</name><pose>Unspecified</pose>"
+            f"<truncated>0</truncated><difficult>0</difficult><bndbox><xmin>{x1}</xmin>"
+            f"<ymin>{y1}</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox></object>"
+            for c, x1, y1, x2, y2 in objs)
+        with open(os.path.join(voc, "Annotations", imgid + ".xml"), "w") as f:
+            f.write(f"<annotation><filename>{imgid}.jpg</filename><size><width>{img.shape[1]}"
+                    f"</width><height>{img.shape[0]}</height><depth>3</depth></size>{xml}"
+                    "</annotation>")
+        sets[split].append(imgid)
+        classes = {c for c, *_ in objs}
+        for c in range(20):
+            present[split][VOC_CLASSES[c]].append(f"{imgid} {1 if c in classes else -1}")
+    main_dir = os.path.join(voc, "ImageSets", "Main")
+    for split, ids in sets.items():
+        with open(os.path.join(main_dir, f"{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+        for cls, rows in present[split].items():
+            with open(os.path.join(main_dir, f"{cls}_{split}.txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+    return os.path.join(root, "VOCdevkit")
+
+
+def probe_host_toolchain() -> dict:
+    """g++'s version; whether jpeglib.h, png.h and zlib.h (what a decoder
+    without libjpeg and libpng would build on) each compile; which libjpeg,
+    libpng and zlib the dynamic linker knows; then a probe of a few lines
+    including both headers, linked with -ljpeg -lpng, and run. This checks
+    the host's system libraries before any of the port's code runs; the
+    outcome decides whether the native and files phases can run at all."""
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    except OSError as e:
+        return {"ok": False, "gxx": None, "reason": f"g++ cannot run: {e}"}
+    known = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60).stdout
+    report = {"gxx": gxx, "runtime_libraries": sorted(
+        {line.split()[0] for line in known.splitlines() if re.search(r"lib(jpeg|png\d*|z)\.so", line)})}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_probe_") as d:
+        for header in ("jpeglib.h", "png.h", "zlib.h"):
+            src = os.path.join(d, "header.cpp")
+            with open(src, "w") as f:
+                f.write(f"#include <cstdio>\n#include <{header}>\n")
+            report[header] = subprocess.run(
+                ["g++", "-std=c++17", "-fsyntax-only", src], capture_output=True,
+                timeout=120).returncode == 0
+        src, exe = os.path.join(d, "probe.cpp"), os.path.join(d, "probe")
+        with open(src, "w") as f:
+            f.write(PROBE_SOURCE)
+        cc = subprocess.run(["g++", "-std=c++17", src, "-o", exe, "-ljpeg", "-lpng"],
+                            capture_output=True, text=True, timeout=120)
+        if cc.returncode != 0:
+            return {"ok": False, **report,
+                    "reason": "a probe including jpeglib.h and png.h and linked with "
+                              f"-ljpeg -lpng does not build: {cc.stderr.strip()[-600:]}"}
+        run = subprocess.run([exe], capture_output=True, text=True, timeout=60)
+        if run.returncode != 0:
+            return {"ok": False, **report, "reason": f"the probe does not run: {run.stderr}"}
+    return {"ok": True, **report, "libraries": run.stdout.strip()}
+
+
+def phase_native(seed: int, smi: str) -> dict:
+    """The host toolchain, then (when the probe passed) the port's native
+    library: its build, PNGs written here decoding bit-equal to the arrays
+    written, and the pthread batch assembler's images/s on 64 VOC-sized
+    images resized to 416."""
+    probe = probe_host_toolchain()
+    emit("native_probe", **probe)
+    if not probe["ok"]:
+        return probe
+    t0 = time.perf_counter()
+    build_native_library()
+    build_s = time.perf_counter() - t0
+    pipe = NativeImagePipe()
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as d:
+        cases = [rng.integers(0, 256, (375, 500, 3), dtype=np.uint8),
+                 rng.integers(0, 256, (333, 500, 3), dtype=np.uint8),
+                 rng.integers(0, 256, (7, 13, 3), dtype=np.uint8),
+                 rng.integers(0, 256, (61, 40), dtype=np.uint8)]
+        for i, arr in enumerate(cases):
+            path = os.path.join(d, f"case{i}.png")
+            write_png(path, arr)
+            want = arr if arr.ndim == 3 else np.repeat(arr[..., None], 3, axis=2)
+            check(pipe.image_size(path) == (arr.shape[1], arr.shape[0]), f"size of case {i}")
+            check(np.array_equal(pipe.decode(path), want),
+                  f"PNG case {i} {arr.shape} does not decode to the array written")
+        paths, raws = [], []
+        for i in range(64):
+            img, _ = paint_voc_image(rng, i % 20)
+            paths.append(os.path.join(d, f"batch{i:02d}.jpg"))
+            write_png(paths[-1], img)
+            raws.append(img)
+        draw = random.Random(seed)
+        params = np.asarray([
+            [p.pleft, p.pright, p.ptop, p.pbot, p.flip, p.dhue, p.dsat, p.dexp]
+            for p in (sample_augment_params(r.shape[1], r.shape[0], draw) for r in raws)],
+            np.float32)
+        times, raw_times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch, fails = pipe.load_batch(paths, 416, 416, params)
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            from_raw, raw_fails = pipe.load_batch_raw(raws, 416, 416, params)
+            raw_times.append(time.perf_counter() - t0)
+            check(fails == raw_fails == 0, "the batch assembler failed an image")
+        check(np.array_equal(batch, from_raw), "decode+augment differs from augment of the decode")
+        check(batch.shape == (64, 416, 416, 3) and np.isfinite(batch).all(), "batch")
+    report = {**probe, "card": smi, "build_s": build_s, "library": os.path.relpath(
+        native_library_path(), REPO), "png_cases_bit_equal": len(cases),
+        "host_threads": pipe.n_threads, "batch": [64, 416, 416, 3],
+        "load_batch_s": times, "load_batch_images_per_s": 64 / min(times),
+        "load_batch_raw_s": raw_times, "load_batch_raw_images_per_s": 64 / min(raw_times)}
+    emit("native", **report)
+    return report
+
+
+def host_copy(tree):
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def assert_state_equal(got: dict, params_cpu, mom_cpu, counters: dict, where: str) -> None:
+    """Restored params and momentum on the card, bit-equal to the host copy
+    taken at the save; counters equal."""
+    check(got["counters"] == counters, f"{where}: counters {got['counters']} != {counters}")
+    for key, want in (("params", params_cpu), ("momentum", mom_cpu)):
+        have = dict(tree_leaves_with_path(got[key]))
+        for path, w in tree_leaves_with_path(want):
+            t = have[path]
+            check(t.device.type == torch.device(DEVICE).type and t.dtype == w.dtype,
+                  f"{where}: {key} {path} on {t.device} as {t.dtype}")
+            check(torch.equal(t.cpu(), w), f"{where}: {key} {path} differs from the saved copy")
+
+
+def bn_launch_counts(s: dict) -> tuple[int, int]:
+    """bn_sums forward and backward kernels in a trace summary."""
+    fwd = sum(n for k, n in s["counts"].items()
+              if "bn_sums_vec_kernel" in k or "bn_sums_scalar_kernel" in k)
+    bwd = sum(n for k, n in s["counts"].items() if "bn_sums_bwd_kernel" in k)
+    return fwd, bwd
+
+
+def phase_ckpt(seed: int, smi: str) -> dict:
+    """Full-state checkpoints of the meta-training step at full width: 2
+    steps, a synchronous save, an async save (FSD_ASYNC_CKPT=1) with a step
+    launched while it writes, both restored into a fresh parameter tree on
+    the card bit-equal to the host copies taken at the saves; then a
+    torch.profiler trace of 3 steps whose summary must name the bn_sums
+    kernels, 29 + 29 a step. Returns the bn_sums launches of its steps."""
+    dblocks, lblocks = parse_cfg(DARKNET_CFG), parse_cfg(LEARNET_CFG)
+    spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
+    sched = schedule_from_cfg(dblocks[0], TRAIN_NEG_RATIO, TRAIN_N_CLS)
+    trainer = MetaTrainer(spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
+                          metain_type=2, image_dtype=torch.bfloat16, warmup_seen=12800,
+                          device=DEVICE)
+    params, _ = load_train_state(spec)
+    mom = init_momentum(params)
+    episodes = [make_episode(seed + 300 + i, sched.batch_size, TRAIN_N_CLS, 416, "bfloat16")
+                for i in range(2)]
+    seen, processed = SEEN, SEEN // sched.batch_size
+    report = {"card": smi, "dtype": "bfloat16", "batch": sched.batch_size, "n_cls": TRAIN_N_CLS}
+    torch.cuda.synchronize()
+    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    steps = 0
+
+    def step(i):
+        nonlocal params, mom, seen, processed, steps
+        seen += sched.batch_size
+        params, mom, metrics = trainer.step(params, mom, episodes[i % 2], seen=seen,
+                                            lr=sched.lr(processed))
+        processed += 1
+        steps += 1
+        return metrics
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ckdir = os.path.join(d, "ckpt")
+        losses = [float(format_loss_line(seen, step(i)).rsplit(" ", 1)[-1]) for i in range(2)]
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        try:
+            # synchronous save
+            want_sync = (host_copy(params), host_copy(mom),
+                         {"seen": seen, "processed_batches": processed, "step": 2})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            os.environ["FSD_ASYNC_CKPT"] = "0"
+            path_sync = save_train_state(ckdir, 2, params, mom, seen, processed)
+            report["sync_save_s"] = time.perf_counter() - t0
+            # asynchronous save, one step launched while it writes
+            want_async = (host_copy(params), host_copy(mom),
+                          {"seen": seen, "processed_batches": processed, "step": 3})
+            os.environ["FSD_ASYNC_CKPT"] = "1"
+            t0 = time.perf_counter()
+            path_async = save_train_state(ckdir, 3, params, mom, seen, processed)
+            report["async_save_return_s"] = time.perf_counter() - t0
+            step(0)
+            torch.cuda.synchronize()
+            report["step_during_write_s"] = time.perf_counter() - t0
+            wait_for_saves()
+            report["async_save_done_s"] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("FSD_ASYNC_CKPT", None)
+        report["state_bytes"] = os.path.getsize(os.path.join(path_async, "state.pt"))
+        check(latest_checkpoint(ckdir) == path_async, "latest_checkpoint is not the async save")
+        # restore both into a fresh tree on the card
+        for path, (p_cpu, m_cpu, counters) in ((path_sync, want_sync), (path_async, want_async)):
+            fresh, _ = load_train_state(spec)
+            t0 = time.perf_counter()
+            got = restore_train_state(path, {"params": fresh, "momentum": init_momentum(fresh)})
+            torch.cuda.synchronize()
+            report[f"restore_s_step{counters['step']}"] = time.perf_counter() - t0
+            assert_state_equal(got, p_cpu, m_cpu, counters, os.path.basename(path))
+            del got, fresh
+        report["restored_bit_equal"] = 2
+        # a torch.profiler trace of 3 steps, taken again if it lost every
+        # device event (see TRACE_ATTEMPTS)
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            with trace(os.path.join(d, f"trace{attempt}"), device=DEVICE) as trace_path:
+                for i in range(3):
+                    step(i)
+                torch.cuda.synchronize()
+            summary = summarize(load_events(trace_path))
+            if "no GPU events" not in summary["device"]:
+                break
+        fwd, bwd = bn_launch_counts(summary)
+        report.update(trace_device=summary["device"], traces_taken=attempt,
+                      trace_total_ms=summary["total_us"] / 1e3,
+                      trace_bn_fwd=fwd, trace_bn_bwd=bwd,
+                      trace_top=sorted(summary["categories"].items(), key=lambda kv: -kv[1])[:6])
+        check((fwd, bwd) == (3 * BN_LAYERS, 3 * BN_LAYERS),
+              f"the trace of 3 steps names {fwd} + {bwd} bn_sums kernels")
+    launches = {"fwd": bn_sums.launches, "bwd": bn_sums.backward_launches,
+                "layout_copies": bn_sums.layout_copies}
+    check((launches["fwd"], launches["bwd"]) == (steps * BN_LAYERS, steps * BN_LAYERS),
+          f"{steps} steps launched {launches} bn_sums kernels")
+    emit("ckpt", steps=steps, launches=launches, **report)
+    return launches
+
+
+def run_cli(fn, env: dict) -> str:
+    """fn() with the environment `env` set (restored after); returns what it
+    printed."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return buf.getvalue()
+
+
+LOSS_RE = re.compile(r"^(\d+): nGT \d+, .* total (\S+)$", re.M)
+TIMER_RE = re.compile(r"^\S+ \S+ (data .* images/s)$", re.M)
+
+
+def phase_files(seed: int, smi: str, probe: dict) -> dict | None:
+    """The slice's path on image files: a painted VOC devkit, the port's
+    data/prep.py, few-shot tuning through train_meta_cli.main from the
+    tracked checkpoint on the native loader in worker processes with
+    full-state checkpoints and traces, a resumed run, then the ensemble
+    sweep over the test list and voc_eval. Returns the kernels' launches, or
+    None when the host's toolchain probe failed."""
+    if not probe["ok"]:
+        emit("files", ran=False, reason="the native phase's probe failed: " + probe["reason"])
+        return None
+    report = {"card": smi}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
+        os.chdir(root)  # the sweep writes results/ under the working directory
+        try:
+            t0 = time.perf_counter()
+            devkit = paint_devkit(root, seed)
+            report["paint_s"] = time.perf_counter() - t0
+            # -- data preparation through the port's data/prep.py
+            lists_dir, voclist = os.path.join(root, "lists"), os.path.join(root, "voclist")
+            os.makedirs(lists_dir)
+            sets = [("2007", "train"), ("2007", "test")]
+            train_list, test_list = prep.write_voc_labels(devkit, lists_dir, sets=sets)
+            prep.write_voc_labels_1c(devkit, voclist, sets=sets)
+            prep.gen_bbox_fewlist(train_list, voclist, few_nums=[FILES_SHOT])
+            prep.gen_image_fewlist(voclist, few_nums=[FILES_SHOT])
+            prep.gen_traindict(voclist, os.path.join(root, "data"), os.path.join(root, "cfg"),
+                               few_nums=[FILES_SHOT], gpus="0")
+            traindict = os.path.join(root, "data", f"voc_traindict_few5c_{FILES_SHOT}shot.txt")
+            box_counts = {}
+            for cls in VOC_CLASSES:
+                with open(os.path.join(voclist, f"box_{FILES_SHOT}shot_{cls}_train.txt")) as f:
+                    box_counts[cls] = len(f.read().split())
+            report["box_fewlist_images"] = box_counts
+
+            def datacfg(epochs: int) -> str:
+                path = os.path.join(root, f"tune_{epochs}.data")
+                with open(path, "w") as f:
+                    f.write(f"metayolo=1\nmetain_type=2\ndata=voc\ntuning=1\nneg=1\nrand=0\n"
+                            f"scale=0\nmax_epoch={epochs}\nrepeat=1\ndynamic=0\n"
+                            f"novel=data/voc_novels.txt\nnovelid=0\nmeta={traindict}\n"
+                            f"train={train_list}\nvalid={test_list}\n"
+                            f"backup={root}/backup/tune\ngpus=0\n")
+                return path
+
+            # -- few-shot tuning from the tracked checkpoint, on files
+            init_w = os.path.join(root, "base.weights")
+            with open(init_w, "wb") as f:
+                f.write(read_bf16_gz(WEIGHTS))
+            env = {"FSD_NATIVE": "1", "FSD_NATIVE_BATCH": "1", "FSD_WORKERS": "2",
+                   "FSD_ORBAX_DIR": os.path.join(root, "ckpt"), "FSD_ASYNC_CKPT": "1",
+                   "FSD_PROFILE_DIR": os.path.join(root, "trace"), "FSD_DTYPE": "bfloat16"}
+            bn_total = {"fwd": 0, "bwd": 0, "layout_copies": 0}
+            runs = []
+            for run, epochs in enumerate(FILES_EPOCHS):
+                cfg = datacfg(epochs)
+                torch.cuda.synchronize()
+                bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+                t0 = time.perf_counter()
+                out = run_cli(lambda: train_meta_cli.main(cfg, DARKNET_CFG, LEARNET_CFG, init_w),
+                              env)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                fwd, bwd = bn_sums.launches, bn_sums.backward_launches
+                losses = [(int(s), float(v)) for s, v in LOSS_RE.findall(out)]
+                timers = TIMER_RE.findall(out)
+                check(losses and all(np.isfinite(v) for _, v in losses),
+                      f"tuning run {run}: loss lines {losses}")
+                check((fwd, bwd) == (BN_LAYERS * len(losses),) * 2,
+                      f"tuning run {run}: {len(losses)} steps launched {fwd} + {bwd} bn_sums kernels")
+                bn_total["fwd"] += fwd
+                bn_total["bwd"] += bwd
+                bn_total["layout_copies"] += bn_sums.layout_copies
+                # the CLI's "repeat nsamples max_batches batch" line
+                nsamples, batch = map(int, re.search(r"^\S+ \S+ 1 (\d+) \d+ (\d+)$", out,
+                                                     re.M).groups())
+                saved = re.findall(r"save weights to (\S+)$", out, re.M)
+                runs.append({"epochs": epochs, "weights": saved[-1], "nsamples": nsamples,
+                             "batch": batch, "steps": len(losses),
+                             "seconds": seconds, "first_loss_line_seen": losses[0][0],
+                             "last_loss_line_seen": losses[-1][0],
+                             "losses": [v for _, v in losses], "step_timer": timers,
+                             "bn_launches_per_step": [fwd // len(losses), bwd // len(losses)],
+                             "resumed": "resuming train state from" in out})
+            first, second = runs
+            check(not first["resumed"] and second["resumed"], "the second run did not resume")
+            check(len(first["step_timer"]) == FILES_EPOCHS[0] and len(second["step_timer"]) == 1,
+                  "one StepTimer line an epoch")
+            ck = restore_train_state(latest_checkpoint(env["FSD_ORBAX_DIR"]))["counters"]
+            per_epoch = first["nsamples"] // first["batch"]
+            check(ck == {"seen": second["last_loss_line_seen"],
+                         "processed_batches": 3 * per_epoch, "step": 3},
+                  f"counters after the resumed run: {ck}")
+            check(second["first_loss_line_seen"] == first["last_loss_line_seen"] + first["batch"],
+                  "the resumed run did not start from the first run's counters")
+            traces = find_trace_files(env["FSD_PROFILE_DIR"])
+            check(len(traces) == FILES_EPOCHS[1], f"{len(traces)} traces for {FILES_EPOCHS[1]} epochs")
+            fwd_t, bwd_t = bn_launch_counts(summarize(load_events(traces[-1])))
+            check((fwd_t, bwd_t) == (BN_LAYERS * per_epoch,) * 2,
+                  f"the resumed epoch's trace names {fwd_t} + {bwd_t} bn_sums kernels")
+            report["tuning"] = runs
+            report["checkpoints"] = sorted(os.listdir(env["FSD_ORBAX_DIR"]))
+            # -- the ensemble sweep on the tuned weights, over the test list
+            tuned = second["weights"]
+            check(tuned.endswith(f"{FILES_EPOCHS[1]:06d}.weights"), f"tuned weights {tuned}")
+            data_options, _, _, settings = resolve_configs(datacfg(FILES_EPOCHS[1]), DARKNET_CFG,
+                                                           LEARNET_CFG)
+            torch.cuda.synchronize()
+            nms_rows.launches = 0
+            t0 = time.perf_counter()
+            printed = run_cli(lambda: valid.run_valid_ensemble(
+                data_options, DARKNET_CFG, LEARNET_CFG, tuned, settings, batch_size=BATCH),
+                {"FSD_NATIVE": "1"})
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+            nms_launches = nms_rows.launches
+            prefix = printed.split("saving to: ", 1)[1].split()[0]
+            files = sorted(n for n in os.listdir(prefix) if n.startswith("comp4_det_test_"))
+            check(len(files) == 20, f"{len(files)} result files")
+            # a batch whose rows overflow the buffer goes to the host path
+            check(1 <= nms_launches <= FILES_TEST_IMAGES // BATCH,
+                  f"{nms_launches} NMS launches for {FILES_TEST_IMAGES // BATCH} sweep batches")
+            ev = run_cli(lambda: do_python_eval(
+                os.path.join(prefix, "comp4_det_test_"), devkit_path=devkit,
+                output_dir=os.path.join(root, "output")), {})
+            result = [l for l in ev.splitlines() if l.startswith("Mean AP")]
+            m_ap = float(result[0].split("=")[1])
+            check(np.isfinite(m_ap), f"mAP {m_ap}")
+            report.update(sweep_s=sweep_s, sweep_images=FILES_TEST_IMAGES,
+                          nms_launches=nms_launches, result_files=len(files), map_painted=m_ap)
+        finally:
+            os.chdir(cwd)
+    emit("files", ran=True, **report)
+    return {"bn": bn_total, "nms": {"launches": nms_launches}}
+
+
 def kernels_line(served: dict, worst: int, bn: dict, trained: dict) -> dict:
     """The summary of every kernel of the port. `served` and `trained` map
     each serving and training path to what it returned: its launches (read
@@ -1359,7 +1900,8 @@ def bn_kernel_entries(bn: dict, trained: dict) -> list:
     return entries
 
 
-PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train")
+PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
+          "native", "ckpt", "files")
 
 
 def main() -> int:
@@ -1397,6 +1939,14 @@ def main() -> int:
         if path in phases:
             trained[path] = fn(args.seed)
             phase_bn_step(path, trained[path]["bn_layer_shapes"], n_layers, args.seed)
+    if "native" in phases or "files" in phases:
+        probe = phase_native(args.seed, smi) if "native" in phases else probe_host_toolchain()
+    if "ckpt" in phases:
+        trained["ckpt"] = phase_ckpt(args.seed, smi)
+    if "files" in phases:
+        files = phase_files(args.seed, smi, probe)
+        if files is not None:
+            trained["files"], served["files"] = files["bn"], files["nms"]
     for path, got in served.items():
         check(got["launches"] > 0, f"the {path} path never launched the NMS kernel")
     for path, got in trained.items():

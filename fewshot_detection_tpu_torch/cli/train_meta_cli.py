@@ -11,10 +11,13 @@ is `train.trainer.MetaTrainer.step` on one device.
 
 Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_REMAT,
 FSD_CLIP_NORM, FSD_OVERLAP_METRICS, FSD_BN_DARKNET, FSD_WARMUP_SEEN,
-FSD_NOAUG, FSD_RAM_CACHE / FSD_RAM_CACHE_MB, FSD_PATH_MAP. Switches of parts that are
-not ported yet raise NotImplementedError instead of being ignored:
-FSD_NATIVE / FSD_NATIVE_BATCH (the C++ loader), FSD_WORKERS (loader worker
-processes), FSD_ORBAX_DIR (full-state checkpoints), and more than one device.
+FSD_NOAUG, FSD_RAM_CACHE / FSD_RAM_CACHE_MB, FSD_PATH_MAP, FSD_NATIVE /
+FSD_NATIVE_BATCH (the C++ image loader, native/), FSD_WORKERS (loader worker
+processes, data/mploader.py), FSD_ORBAX_DIR / FSD_ASYNC_CKPT (full-state
+checkpoints and resume, train/checkpoint.py) and FSD_PROFILE_DIR (a
+torch.profiler trace of each epoch, utils/profiling.py). Each epoch ends with
+the StepTimer line (data / step / sync phases and images/s). More than one
+device raises NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from ..data import MetaDataset, build_dataset
 from ..data.datasets import DetectionDataset
 from ..data.loader import prefetch
+from ..data.mploader import MPLoader, episode_stream
 from ..eval.detector import resolve_device
 from ..eval.valid import set_float32_precision
 from ..models import weights_io
@@ -39,24 +43,20 @@ from ..models.meta import MetaSpec, init_meta_params
 from ..models.spec import build_spec
 from ..ops.region_loss import sample_neg_keep
 from ..train import MetaTrainer, init_momentum, lr_schedule, neg_ratio_lr_factor
+from ..train.checkpoint import (
+    latest_checkpoint,
+    restore_train_state,
+    save_train_state,
+    wait_for_saves,
+)
 from ..utils import format_loss_line, log
+from ..utils.profiling import StepTimer, trace
 from .common import ensure_backup_dir, replica_layout, resolve_configs
 
-# switches of parts of the JAX package that the port does not have yet
-_WAITING_SWITCHES = {
-    "FSD_NATIVE": "the native C++ image loader (native/)",
-    "FSD_NATIVE_BATCH": "the native C++ image loader (native/)",
-    "FSD_WORKERS": "loader worker processes (data/mploader.py)",
-    "FSD_ORBAX_DIR": "full-state checkpoints (train/checkpoint.py)",
-}
-
-
 def refuse_waiting_switches(device=None) -> None:
-    """Raise NotImplementedError when the environment (or the device list)
-    asks for a part that is not ported yet, rather than ignore the request."""
-    for name, what in _WAITING_SWITCHES.items():
-        if os.environ.get(name, "0") not in ("", "0"):
-            raise NotImplementedError(f"{name} is set, but {what} is not ported yet")
+    """Raise NotImplementedError when the device list asks for more than one
+    device (the JAX package's parallel/, not ported yet), rather than ignore
+    the request."""
     if isinstance(device, (list, tuple)) and len(device) > 1:
         raise NotImplementedError(
             "training on more than one device (parallel/) is not ported yet"
@@ -199,66 +199,132 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
     })
     mom = init_momentum(params)
 
+    # Full-state resume (params + momentum + schedule counters) when a
+    # checkpoint exists under FSD_ORBAX_DIR: richer than the .weights
+    # seen-counter restore
+    ckpt_dir = os.environ.get("FSD_ORBAX_DIR")
+    if ckpt_dir:
+        latest = latest_checkpoint(ckpt_dir)
+        if latest:
+            log(f"resuming train state from {latest}")
+            state = restore_train_state(latest, {"params": params, "momentum": mom})
+            params, mom = state["params"], state["momentum"]
+            seen = state["counters"]["seen"]
+            processed_batches = state["counters"]["processed_batches"]
+            init_epoch = state["counters"]["step"]
+
     rng = random.Random(int(time.time()))
     nprng = np.random.RandomState(rng.randrange(2**31))
 
-    for epoch in range(init_epoch, max_epochs):
-        ds = DetectionDataset(
-            trainlist, settings, train=True, seen=seen, shuffle=False,
-            rng=rng, filter_valid=False,
-        )
-        metaset = MetaDataset(
-            data_options["meta"], settings, train=True,
-            num_replicas=n_groups, rng=rng,
-        )
-        meta_iter = metaset.batches(n_groups * len(metaset.classes))
-
-        lr = lr_schedule(processed_batches, sched.learning_rate, sched.steps, sched.scales)
-        log(
-            f"epoch {epoch}/{max_epochs}, processed {epoch * nsamples} "
-            f"samples, lr {lr:f}"
-        )
-
-        def episodes():
-            # detection + support batches prepared together so the
-            # background thread hides BOTH loads behind the device step
-            for imgs, labels in ds.batches(batch_size):
-                metax, mask = next(meta_iter)
-                yield imgs, labels, metax, mask
-
-        # FSD_OVERLAP_METRICS=1: fetch step i's loss scalars only AFTER step
-        # i+1 is launched, so the blocking fetch overlaps the next step's
-        # host work. Loss lines print one step late with their own seen
-        # counter; checkpoint cadence and values are unchanged.
-        overlap = os.environ.get("FSD_OVERLAP_METRICS", "0") == "1"
-        pending = None
-
-        for imgs, labels, metax, mask in prefetch(episodes()):
-            lr = sched.lr(processed_batches)
-            processed_batches += 1
-            batch = make_episode_batch(
-                imgs, labels, metax, mask, n_groups,
-                settings.neg_ratio, nprng, dtype=compute_dtype(),
+    try:
+        for epoch in range(init_epoch, max_epochs):
+            timer = StepTimer()
+            ds = DetectionDataset(
+                trainlist, settings, train=True, seen=seen, shuffle=False,
+                rng=rng, filter_valid=False,
             )
-            seen += imgs.shape[0]
-            params, mom, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
-            if overlap:
-                if pending is not None:
-                    print(format_loss_line(*pending))
-                pending = (seen, metrics)
-            else:
-                # the one place a step waits for the device
-                print(format_loss_line(seen, metrics))
-        if pending is not None:
-            print(format_loss_line(*pending))
-
-        if (epoch + 1) % settings.save_interval == 0:
-            out = f"{backupdir}/{epoch + 1:06d}.weights"
-            log("save weights to " + out)
-            weights_io.save_weights(
-                out, [spec.darknet, spec.learnet],
-                [to_jax_params(spec.darknet, params["darknet"]),
-                 to_jax_params(spec.learnet, params["learnet"])],
-                seen=(epoch + 1) * nsamples,
+            metaset = MetaDataset(
+                data_options["meta"], settings, train=True,
+                num_replicas=n_groups, rng=rng,
             )
+            meta_iter = metaset.batches(n_groups * len(metaset.classes))
+
+            lr = lr_schedule(processed_batches, sched.learning_rate, sched.steps, sched.scales)
+            log(
+                f"epoch {epoch}/{max_epochs}, processed {epoch * nsamples} "
+                f"samples, lr {lr:f}"
+            )
+
+            def episodes():
+                # detection + support batches prepared together so the
+                # background thread hides BOTH loads behind the device step
+                for imgs, labels in ds.batches(batch_size):
+                    metax, mask = next(meta_iter)
+                    yield imgs, labels, metax, mask
+
+            # FSD_WORKERS=N: N loader worker PROCESSES (the reference's torch
+            # num_workers, train_meta.py:173-183) — the GIL-bound decode path
+            # cannot scale on the prefetch thread alone
+            n_workers = int(os.environ.get("FSD_WORKERS", "0"))
+            mp_loader = None
+            if n_workers > 0:
+                mp_loader = MPLoader(
+                    episode_stream,
+                    (trainlist, data_options["meta"], settings, batch_size,
+                     seen, n_groups),
+                    num_workers=n_workers, seed=rng.randrange(2**31),
+                )
+
+            # FSD_OVERLAP_METRICS=1: fetch step i's loss scalars only AFTER
+            # step i+1 is launched, so the blocking fetch overlaps the next
+            # step's host work. Loss lines print one step late with their own
+            # seen counter; checkpoint cadence and values are unchanged.
+            overlap = os.environ.get("FSD_OVERLAP_METRICS", "0") == "1"
+            pending = None
+
+            def flush(p):
+                with timer.phase("sync"):  # the one place a step waits
+                    line = format_loss_line(*p)
+                print(line)
+
+            try:
+                with trace(device=device):  # torch.profiler when FSD_PROFILE_DIR is set
+                    it = iter(mp_loader) if mp_loader else prefetch(episodes())
+                    while True:
+                        with timer.phase("data"):
+                            nxt = next(it, None)
+                            if nxt is None:
+                                break
+                            imgs, labels, metax, mask = nxt
+                        lr = sched.lr(processed_batches)
+                        processed_batches += 1
+                        with timer.phase("step"):
+                            batch = make_episode_batch(
+                                imgs, labels, metax, mask, n_groups,
+                                settings.neg_ratio, nprng, dtype=compute_dtype(),
+                            )
+                            seen += imgs.shape[0]
+                            params, mom, metrics = trainer.step(
+                                params, mom, batch, seen=seen, lr=lr)
+                        if overlap:
+                            if pending is not None:
+                                flush(pending)
+                            pending = (seen, metrics)
+                        else:
+                            flush((seen, metrics))
+                    if pending is not None:
+                        flush(pending)
+                        pending = None
+            finally:
+                # a failure mid-epoch must not leave FSD_WORKERS processes
+                # decoding batches until interpreter exit
+                if mp_loader is not None:
+                    mp_loader.close()
+            log(timer.summary(images=nsamples))
+
+            if (epoch + 1) % settings.save_interval == 0:
+                out = f"{backupdir}/{epoch + 1:06d}.weights"
+                log("save weights to " + out)
+                weights_io.save_weights(
+                    out, [spec.darknet, spec.learnet],
+                    [to_jax_params(spec.darknet, params["darknet"]),
+                     to_jax_params(spec.learnet, params["learnet"])],
+                    seen=(epoch + 1) * nsamples,
+                )
+                if ckpt_dir:
+                    # the running `seen`, not the header's (epoch+1) *
+                    # nsamples that the JAX package stores here too: a
+                    # tuning run starts at the base checkpoint's seen, and
+                    # the last batch of an epoch may be dropped, so that
+                    # value would restart a resumed run elsewhere (inside
+                    # the region loss's warm-up, for one)
+                    save_train_state(
+                        ckpt_dir, epoch + 1, params, mom,
+                        seen=seen, processed_batches=processed_batches,
+                    )
+    finally:
+        # commit an in-flight FSD_ASYNC_CKPT=1 background save also on an
+        # exception or KeyboardInterrupt mid-training
+        if ckpt_dir:
+            wait_for_saves()
     return params

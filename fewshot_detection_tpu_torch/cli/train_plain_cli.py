@@ -10,9 +10,12 @@ checkpoints every `save_interval` epochs. The per-step compute is
 `train.trainer.PlainTrainer.step` on one device.
 
 Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_REMAT,
-FSD_CLIP_NORM, and those of the datasets (FSD_NOAUG, FSD_RAM_CACHE, ...).
-The switches of parts not ported yet raise NotImplementedError, as in the
-meta CLI (`train_meta_cli.refuse_waiting_switches`).
+FSD_CLIP_NORM, FSD_WORKERS (loader worker processes, data/mploader.py), and
+those of the datasets (FSD_NOAUG, FSD_RAM_CACHE, FSD_NATIVE,
+FSD_NATIVE_BATCH, ...). As in the JAX package's plain loop there are no
+full-state checkpoints and no trace here. More than one device raises
+NotImplementedError, as in the meta CLI
+(`train_meta_cli.refuse_waiting_switches`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from ..data.datasets import DetectionDataset
 from ..data.lists import load_lines
 from ..data.loader import prefetch
+from ..data.mploader import MPLoader, detection_stream
 from ..eval.detector import resolve_device
 from ..eval.valid import set_float32_precision
 from ..models import weights_io
@@ -128,14 +132,31 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
             f"epoch {epoch}/{max_epochs}, processed {epoch * nsamples} "
             f"samples, lr {lr:f}"
         )
-        for imgs, labels in prefetch(ds.batches(batch_size)):
-            lr = sched.lr(processed_batches)
-            processed_batches += 1
-            batch = make_plain_batch(imgs, labels, n_groups, settings.neg_ratio, nprng,
-                                     dtype=compute_dtype())
-            seen += imgs.shape[0]
-            params, mom, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
-            print(format_loss_line(seen, metrics))  # the one place a step waits
+        # FSD_WORKERS=N: N loader worker processes (torch num_workers
+        # analogue); default keeps the single prefetch thread
+        n_workers = int(os.environ.get("FSD_WORKERS", "0"))
+        loader = None
+        if n_workers > 0:
+            loader = MPLoader(
+                detection_stream,
+                (trainlist, settings, batch_size, seen),
+                num_workers=n_workers, seed=rng.randrange(2**31),
+            )
+        try:
+            for imgs, labels in (iter(loader) if loader
+                                 else prefetch(ds.batches(batch_size))):
+                lr = sched.lr(processed_batches)
+                processed_batches += 1
+                batch = make_plain_batch(imgs, labels, n_groups, settings.neg_ratio, nprng,
+                                         dtype=compute_dtype())
+                seen += imgs.shape[0]
+                params, mom, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
+                print(format_loss_line(seen, metrics))  # the one place a step waits
+        finally:
+            # close worker processes on every exit path, not just the clean
+            # epoch end (a failure otherwise leaks them until exit)
+            if loader is not None:
+                loader.close()
         log(
             "training with %f samples/s"
             % (nsamples / max(time.time() - t0, 1e-9))

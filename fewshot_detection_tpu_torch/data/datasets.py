@@ -1,9 +1,9 @@
 """Detection + support (meta) datasets.
 
 Own copy of the JAX package's `data/datasets.py` (numpy/PIL code, no JAX),
-without the native C++ loader paths, which are not ported yet. Pure-python
-samplers feeding the train/eval steps; no torch DataLoader. Reference
-behavior being reproduced (file:line in the reference):
+native C++ loader paths included (`FSD_NATIVE=1`, `FSD_NATIVE_BATCH=1`).
+Pure-python samplers feeding the train/eval steps; no torch DataLoader.
+Reference behavior being reproduced (file:line in the reference):
   * listDataset — base-class filtering, multi-scale schedule keyed to the
     `seen` counter (dataset.py:223-245), label-path derivation
     (dataset.py:265-271)
@@ -16,8 +16,10 @@ behavior being reproduced (file:line in the reference):
     (dataset.py:472-488)
 
 The same `random.Random` stream is consumed in the same order as in the JAX
-package, so one seed gives the same episodes. PIL is imported where an image
-file is opened.
+package, so one seed gives the same episodes, on the PIL path and on the
+native one. PIL is imported where the PIL path opens an image file; the
+native path needs no PIL, and a native library that cannot be built raises
+rather than falling back to PIL.
 """
 
 from __future__ import annotations
@@ -35,12 +37,23 @@ from .augment import (
     fill_truth_detection_meta,
     image_to_array,
     load_label_boxes,
+    sample_augment_params,
 )
 
 JITTER = 0.2
 HUE = 0.1
 SATURATION = 1.5
 EXPOSURE = 1.5
+
+
+def _native_pipe():
+    """The native C++ loader under FSD_NATIVE=1, else None. A library that
+    cannot be built raises (RuntimeError with the compiler's output)."""
+    if os.environ.get("FSD_NATIVE", "0") != "1":
+        return None
+    from ..native import NativeImagePipe
+
+    return NativeImagePipe()
 
 
 class DecodedCache:
@@ -62,10 +75,9 @@ class DecodedCache:
         self.hits = 0
         self.misses = 0
 
-    def get(self, path: str) -> np.ndarray | None:
-        """Cached decode; None when over budget (caller decodes from disk)."""
-        from PIL import Image
-
+    def get(self, path: str, native=None) -> np.ndarray | None:
+        """Cached decode (through `native` when given, else PIL); None when
+        over budget (caller decodes from disk)."""
         arr = self.map.get(path)
         if arr is not None:
             self.hits += 1
@@ -74,8 +86,13 @@ class DecodedCache:
             self.misses += 1
             return None
         try:
-            with Image.open(path) as im:
-                arr = np.asarray(im.convert("RGB"), np.uint8)
+            if native is not None:
+                arr = native.decode(path)
+            else:
+                from PIL import Image
+
+                with Image.open(path) as im:
+                    arr = np.asarray(im.convert("RGB"), np.uint8)
         except Exception:
             self.misses += 1
             return None
@@ -151,6 +168,37 @@ def _open_rgb(imgpath: str):
     if raw is not None:
         return Image.fromarray(raw)
     return Image.open(imgpath).convert("RGB")
+
+
+def _native_params(native, imgpath: str, raw, rng: _random.Random):
+    """Augmentation parameters for one image, drawn from `rng` as the PIL
+    path draws them; the original size comes from the cached decode or the
+    file's header."""
+    if raw is not None:
+        oh, ow = raw.shape[:2]
+    else:
+        ow, oh = native.image_size(imgpath)
+    return sample_augment_params(
+        ow, oh, rng, jitter=JITTER, hue=HUE, saturation=SATURATION, exposure=EXPOSURE,
+    )
+
+
+def _native_load(native, imgpath: str, shape, rng: _random.Random, augment: bool):
+    """One image decoded, augmented and resized to `shape` through the C++
+    pipeline: (float array, augmentation parameters or None). RAM-cache hits
+    skip the decode and run only the raw augment tail."""
+    cache = ram_cache()
+    raw = cache.get(imgpath, native) if cache is not None else None
+    if not augment:
+        if raw is not None:
+            return native.resize_raw(raw, shape[0], shape[1]), None
+        return native.load_plain(imgpath, shape[0], shape[1]), None
+    p = _native_params(native, imgpath, raw, rng)
+    args = (shape[0], shape[1], p.pleft, p.pright, p.ptop, p.pbot, p.flip,
+            p.dhue, p.dsat, p.dexp)
+    if raw is not None:
+        return native.augment_raw(raw, *args), p
+    return native.load_augment(imgpath, *args), p
 
 
 def multiscale_size(seen: int, rng: _random.Random, multiscale: bool) -> int:
@@ -230,9 +278,26 @@ class DetectionDataset:
         self.augment = train and not _noaug("det")
         self.shape = shape or (settings.width, settings.height)
         self.seen = seen
+        self._native = _native_pipe()
+        self._native_init = True
         # scale switches must land on batch boundaries; batches() sets this
         # to the actual batch size (the reference hardcoded its 64)
         self._rescale_every = 64
+
+    @property
+    def native(self):
+        # lazily (re)constructed so the dataset survives pickling into
+        # multi-process loader workers (the ctypes handle does not)
+        if not self._native_init:
+            self._native = _native_pipe()
+            self._native_init = True
+        return self._native
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_native"] = None
+        state["_native_init"] = False
+        return state
 
     def __len__(self) -> int:
         return len(self.lines)
@@ -253,30 +318,43 @@ class DetectionDataset:
             self.shape = (size, size)
 
     def __getitem__(self, index: int):
-        s = self.settings
         imgpath = self.lines[index]
         self._maybe_rescale(index)
-        labpath = get_labpath(imgpath)
-
-        img, flip, dx, dy, sx, sy = augment_image(
-            _open_rgb(imgpath), self.shape, self.rng,
-            jitter=JITTER, hue=HUE, saturation=SATURATION,
-            exposure=EXPOSURE, augment=self.augment,
-        )
-        arr = image_to_array(img)
-        if s.metayolo:
-            label = fill_truth_detection_meta(
-                labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy, s.base_ids
-            )
+        if self.native is not None:
+            arr, flip, dx, dy, sx, sy = self._load_native(imgpath)
         else:
-            imgid = os.path.basename(imgpath).split(".")[0]
-            joint = s.yolo_joint and imgid in s.metaids
-            label = fill_truth_detection(
-                labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy, s.base_ids,
-                joint_keep=joint,
+            img, flip, dx, dy, sx, sy = augment_image(
+                _open_rgb(imgpath), self.shape, self.rng,
+                jitter=JITTER, hue=HUE, saturation=SATURATION,
+                exposure=EXPOSURE, augment=self.augment,
             )
+            arr = image_to_array(img)
+        label = self._label(imgpath, flip, dx, dy, sx, sy)
         self.seen += 1
         return arr, label
+
+    def _load_native(self, imgpath: str):
+        """Decode+augment through the C++ pipeline; randomness drawn from
+        the same python stream as the PIL path."""
+        arr, p = _native_load(self.native, imgpath, self.shape, self.rng, self.augment)
+        if p is None:
+            return arr, 0, 0.0, 0.0, 1.0, 1.0
+        return arr, p.flip, p.dx, p.dy, p.sx, p.sy
+
+    def _label(self, imgpath: str, flip, dx, dy, sx, sy):
+        """The image's label under the geometry of its augmentation."""
+        s = self.settings
+        labpath = get_labpath(imgpath)
+        if s.metayolo:
+            return fill_truth_detection_meta(
+                labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy, s.base_ids
+            )
+        imgid = os.path.basename(imgpath).split(".")[0]
+        joint = s.yolo_joint and imgid in s.metaids
+        return fill_truth_detection(
+            labpath, flip, dx, dy, 1.0 / sx, 1.0 / sy, s.base_ids,
+            joint_keep=joint,
+        )
 
     def batches(self, batch_size: int, drop_last: bool = True,
                 offset: int = 0, stride: int = 1):
@@ -288,23 +366,76 @@ class DetectionDataset:
         workers (worker w of W yields batches w, w+W, ...) — the reference's
         torch num_workers semantics (train_meta.py:173-183). `seen` (and so
         the multiscale width range) is pinned to the batch index so every
-        worker sees the sequential schedule."""
+        worker sees the sequential schedule.
+
+        FSD_NATIVE_BATCH=1 (with FSD_NATIVE=1) decodes each batch through
+        the C++ pipeline's pthread batch API instead of per-image calls —
+        identical outputs, scales with host cores."""
         # the smallest multiple of the batch size >= the reference's
         # 64-sample block
         self._rescale_every = ((64 + batch_size - 1) // batch_size) * batch_size
         n = len(self.lines)
         end = n - (n % batch_size) if drop_last else n
         seen0 = self.seen
+        use_native_batch = (
+            os.environ.get("FSD_NATIVE_BATCH", "0") == "1"
+            and self.native is not None
+        )
         for start in range(offset * batch_size, end, stride * batch_size):
             if stride > 1:
                 self.seen = seen0 + start
             stop = min(start + batch_size, n)
+            if use_native_batch:
+                yield self._native_batch(start, stop)
+                continue
             imgs, labels = [], []
             for i in range(start, stop):
                 im, lb = self[i]
                 imgs.append(im)
                 labels.append(lb)
             yield np.stack(imgs), np.stack(labels)
+
+    def _native_batch(self, start: int, stop: int):
+        """One batch through the native pthread batch API: augmentation
+        parameters are drawn per image from the SAME python rng stream as
+        the per-image path (so outputs are identical), then all decodes +
+        augments run threaded in C++. Raises IOError when an image fails to
+        decode."""
+        cache = ram_cache()
+        paths, metas, raws = [], [], []
+        for i in range(start, stop):
+            imgpath = self.lines[i]
+            self._maybe_rescale(i)
+            raw = cache.get(imgpath, self.native) if cache is not None else None
+            paths.append(imgpath)
+            metas.append(_native_params(self.native, imgpath, raw, self.rng)
+                         if self.augment else None)
+            raws.append(raw)
+            self.seen += 1
+        if self.augment:
+            params = np.asarray(
+                [[p.pleft, p.pright, p.ptop, p.pbot, p.flip,
+                  p.dhue, p.dsat, p.dexp] for p in metas], np.float32,
+            )
+        else:
+            params = None
+        if all(r is not None for r in raws):
+            # every image cached: augment-only batch, zero disk IO
+            batch, fails = self.native.load_batch_raw(
+                raws, self.shape[0], self.shape[1], params
+            )
+        else:
+            batch, fails = self.native.load_batch(
+                paths, self.shape[0], self.shape[1], params
+            )
+        if fails:
+            raise IOError(f"native batch decode failed for {fails} images")
+        labels = [
+            self._label(imgpath, p.flip, p.dx, p.dy, p.sx, p.sy) if p
+            else self._label(imgpath, 0, 0.0, 0.0, 1.0, 1.0)
+            for imgpath, p in zip(paths, metas)
+        ]
+        return batch, np.stack(labels)
 
 
 class MetaDataset:
@@ -373,6 +504,9 @@ class MetaDataset:
         self.batch_size = len(self.classes) * num_replicas
         self.meta_shape = (s.meta_width, s.meta_height)
         self.mask_shape = (s.mask_width, s.mask_height)
+        # native decode+augment applies to plain RGB support inputs; the
+        # metain 3/4 cropped-object channels need the PIL image around
+        self.native = _native_pipe() if s.metain_type in (1, 2) else None
         # ensemble filtering is LAZY: the reference ran a full filter()
         # decode prepass and then decoded every kept image AGAIN during the
         # sweep (dataset.py:447-457). batches() streams with on-the-fly
@@ -393,7 +527,7 @@ class MetaDataset:
 
     def _load_support(self, clsid: int, which: int | str):
         """One augmented support image + its transformed per-class boxes.
-        Returns (PIL image, boxes)."""
+        Returns (PIL image | float array, boxes)."""
         if isinstance(which, int):
             imgpath = self.metalines[clsid][which].rstrip()
         else:
@@ -401,6 +535,12 @@ class MetaDataset:
         labpath = get_labpath_1c(
             imgpath, self.classes[clsid], self.settings.data
         )
+        if self.native is not None:
+            arr, p = _native_load(self.native, imgpath, self.meta_shape, self.rng,
+                                  self.augment)
+            if p is None:
+                return arr, load_label_boxes(labpath, 0, 0, 0, 1.0, 1.0)
+            return arr, load_label_boxes(labpath, p.flip, p.dx, p.dy, 1.0 / p.sx, 1.0 / p.sy)
         img, flip, dx, dy, sx, sy = augment_image(
             _open_rgb(imgpath), self.meta_shape, self.rng,
             jitter=JITTER, hue=HUE, saturation=SATURATION, exposure=EXPOSURE,
@@ -425,12 +565,13 @@ class MetaDataset:
 
     def _compose_input(self, img, box: np.ndarray):
         """(image array, mask) per metain_type; type 3/4 appends the cropped
-        object resized to full size (dataset.py:386-391)."""
+        object resized to full size (dataset.py:386-391). `img` is a float
+        array when the native loader produced it, else a PIL image."""
         s = self.settings
         mask = self._make_mask(box)
         if mask is None:
             return None, None
-        arr = image_to_array(img)
+        arr = img if isinstance(img, np.ndarray) else image_to_array(img)
         if s.metain_type in (3, 4):
             w, h = self.mask_shape
             x1 = int(max(0, round((box[0] - box[2] / 2) * w)))

@@ -96,6 +96,14 @@ def refuse_eval_mesh() -> None:
             "FSD_EVAL_MESH is set, but the sweep over several devices is not ported yet")
 
 
+def refuse_int8() -> None:
+    """FSD_INT8 (the JAX package's int8 ensemble sweep, with FSD_INT8_HEAD
+    choosing an int8 head) is not ported yet: refused rather than ignored."""
+    if os.environ.get("FSD_INT8", "0") == "1":
+        raise NotImplementedError(
+            "FSD_INT8=1 is set, but int8 serving (models/quant.py) is not ported yet")
+
+
 def eval_batch_size(default: int = 2) -> int:
     """The reference swept validation at batch 2 (valid.py:37); raise it
     with FSD_EVAL_BATCH."""
@@ -216,6 +224,7 @@ def run_valid_ensemble(
     """The whole ensemble sweep in full float32 on `device`; returns the
     results prefix."""
     refuse_eval_mesh()
+    refuse_int8()
     set_float32_precision(tf32=False)
     batch_size = batch_size or eval_batch_size()
     m = MetaDetector(darknetcfg, learnetcfg, weightfile,

@@ -4,11 +4,18 @@ files, so the package imports (and serves in-memory data) without them."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
 def get_image_size(fname: str) -> tuple[int, int]:
-    """(width, height) without decoding pixel data."""
+    """(width, height) without decoding pixel data: from the header through
+    the native pipeline under FSD_NATIVE=1 (no PIL needed), else PIL."""
+    if os.environ.get("FSD_NATIVE", "0") == "1":
+        from ..native import NativeImagePipe
+
+        return NativeImagePipe().image_size(fname)
     from PIL import Image
 
     with Image.open(fname) as im:

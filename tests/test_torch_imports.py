@@ -15,7 +15,7 @@ PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 
 ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.py",
                 "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
-                "train_torch.py")
+                "train_torch.py", "partial_torch.py")
 
 
 def _port_sources():
@@ -23,7 +23,7 @@ def _port_sources():
     for root, _, names in os.walk(PKG):
         if "_build" in root or "__pycache__" in root:
             continue
-        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu"))]
+        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu", ".cpp"))]
     return sorted(files)
 
 
@@ -35,12 +35,15 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "assert len(names) >= 35, names\n"
         "for n in ('ops.bn_sums', 'ops._build', 'ops.region_loss', 'train.optim', 'train.trainer',\n"
         "          'cli.train_meta_cli', 'data.augment', 'data.loader', 'utils.logging',\n"
-        "          'eval.harness', 'cli.train_plain_cli'):\n"
+        "          'eval.harness', 'cli.train_plain_cli', 'native', 'native.loader',\n"
+        "          'data.mploader', 'data.prep', 'data.coco_prep', 'train.checkpoint',\n"
+        "          'utils.profiling', 'utils.trace_summary'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"
         "       or k == 'fewshot_detection_tpu' or k.startswith('fewshot_detection_tpu.')]\n"
         "assert not bad, bad\n"
+        "assert not sys.modules[p.__name__ + '.native.loader']._loaded  # built at first use only\n"
         "print('clean', len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -199,9 +199,14 @@ def test_bfloat16_remat_and_two_groups_run(ws, monkeypatch, capsys):
 
 @pytest.mark.parametrize("name", ["FSD_NATIVE", "FSD_NATIVE_BATCH", "FSD_WORKERS", "FSD_ORBAX_DIR"])
 def test_waiting_switch_raises_not_implemented(ws, monkeypatch, name):
+    """These switches waited for their parts, and the CLI refused them; the
+    parts are ported now (their runs: test_torch_native_cli.py,
+    test_torch_checkpoint.py), so none is refused any more: the CLI goes on
+    to read its data cfg."""
     monkeypatch.setenv(name, "/tmp/x" if name == "FSD_ORBAX_DIR" else "1")
-    with pytest.raises(NotImplementedError, match=name):
-        t_cli.main(ws["torch_cfg"], ws["cfg"], ws["init_w"], device="cpu")
+    t_cli.refuse_waiting_switches("cpu")
+    with pytest.raises(FileNotFoundError, match="no_such.data"):
+        t_cli.main(os.path.join(ws["root"], "no_such.data"), ws["cfg"], ws["init_w"], device="cpu")
 
 
 def test_plain_batch_layout_matches_the_jax_cli(monkeypatch):

@@ -1,0 +1,225 @@
+"""The port's dataset preparation (`data/prep.py`, `data/coco_prep.py`) and
+`partial_torch.py` against the JAX package's `data/prep.py`,
+`data/coco_prep.py` and `partial.py`.
+
+Each function runs on the same synthetic devkit at the same paths, once
+from each package; every file it writes (and what it prints or returns)
+must be BYTE-IDENTICAL."""
+
+import contextlib
+import io
+import os
+import runpy
+import shutil
+import sys
+
+import pytest
+
+from fewshot_detection_tpu.config.settings import load_class_names
+from fewshot_detection_tpu.data import coco_prep as j_coco
+from fewshot_detection_tpu.data import prep as j_prep
+from fewshot_detection_tpu_torch.data import coco_prep as t_coco
+from fewshot_detection_tpu_torch.data import prep as t_prep
+
+from synth import VOC, make_voc_like
+from torch_port_util import REPO
+
+SETS = [("2007", "train"), ("2007", "test"), ("2012", "train")]  # 2012 is missing
+
+
+def _files(roots):
+    out = {}
+    for root in roots:
+        for d, _, names in os.walk(root):
+            for n in names:
+                p = os.path.join(d, n)
+                with open(p, "rb") as f:
+                    out[p] = (os.stat(p).st_mtime_ns, f.read())
+    return out
+
+
+def _outputs(roots, fn):
+    """(files fn wrote under the roots, with their bytes; what it printed;
+    what it returned); the trees are put back as they were."""
+    before = _files(roots)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn()
+    after = _files(roots)
+    written = {p: b for p, (t, b) in after.items() if before.get(p, (None,))[0] != t}
+    for p in written:
+        if p in before:
+            with open(p, "wb") as f:
+                f.write(before[p][1])
+            os.utime(p, ns=(before[p][0], before[p][0]))
+        else:
+            os.remove(p)
+    return written, buf.getvalue(), ret
+
+
+def _same(roots, t_fn, j_fn):
+    roots = [roots] if isinstance(roots, str) else roots
+    got, want = _outputs(roots, t_fn), _outputs(roots, j_fn)
+    assert sorted(got[0]) == sorted(want[0]) and got[0]
+    for p in want[0]:
+        assert got[0][p] == want[0][p], p
+    assert got[1:] == want[1:]
+    return got
+
+
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    root = tmp_path_factory.mktemp("prep")
+    d = make_voc_like(str(root / "voc"), n_images=40, seed=1)
+    # both packages' labels, labels_1c and voclist, for the steps that read them
+    (root / "lists").mkdir()
+    lists = j_prep.write_voc_labels(d["devkit"], str(root / "lists"), sets=SETS)
+    j_prep.write_voc_labels_1c(d["devkit"], str(root / "voclist"), sets=SETS)
+    return {"root": str(root), "devkit": d["devkit"], "list": lists[0],
+            "voclist": str(root / "voclist"), "d": d}
+
+
+def test_voc_labels_are_byte_identical(ws, tmp_path):
+    out = tmp_path / "out"
+    out.mkdir()
+    got = _same([ws["devkit"], str(out)],
+                lambda: t_prep.write_voc_labels(ws["devkit"], str(out), sets=SETS),
+                lambda: j_prep.write_voc_labels(ws["devkit"], str(out), sets=SETS))
+    assert "WARNING: skipping missing set 2012/train" in got[1]
+    assert len(got[2]) == 2
+
+
+def test_voc_labels_1c_are_byte_identical(ws, tmp_path):
+    vl = str(tmp_path / "vl")
+    got = _same([ws["devkit"], str(tmp_path)],
+                lambda: t_prep.write_voc_labels_1c(ws["devkit"], vl, sets=SETS),
+                lambda: j_prep.write_voc_labels_1c(ws["devkit"], vl, sets=SETS))
+    assert len(got[0]) > 3 * len(VOC)
+
+
+def test_image_fewlists_are_byte_identical(ws):
+    got = _same(ws["voclist"],
+                lambda: t_prep.gen_image_fewlist(ws["voclist"], few_nums=[1, 2, 3]),
+                lambda: j_prep.gen_image_fewlist(ws["voclist"], few_nums=[1, 2, 3]))
+    assert len(got[0]) == 3 * len(VOC)
+
+
+@pytest.mark.parametrize("few", [[1], [2, 3]])
+def test_box_fewlists_are_byte_identical(ws, few):
+    got = _same(ws["voclist"],
+                lambda: t_prep.gen_bbox_fewlist(ws["list"], ws["voclist"], few_nums=few),
+                lambda: j_prep.gen_bbox_fewlist(ws["list"], ws["voclist"], few_nums=few))
+    assert len(got[0]) == len(few) * len(VOC)
+    assert (t_prep.get_bbox_fewlist(ws["list"], few[-1], seed=7)
+            == j_prep.get_bbox_fewlist(ws["list"], few[-1], seed=7))
+
+
+def test_traindicts_and_data_cfgs_are_byte_identical(ws, tmp_path):
+    kw = dict(few_nums=[1, 10], gpus="0")
+    got = _same(str(tmp_path),
+                lambda: t_prep.gen_traindict(ws["voclist"], str(tmp_path / "d"),
+                                             str(tmp_path / "c"), **kw),
+                lambda: j_prep.gen_traindict(ws["voclist"], str(tmp_path / "d"),
+                                             str(tmp_path / "c"), **kw))
+    assert len(got[0]) == 8
+
+
+def test_convert_fewlist_is_byte_identical(tmp_path, monkeypatch):
+    """It reads data/vocsplit and rewrites data/voc_traindict_*.txt relative
+    to the working directory: run from a copy of those files."""
+    work = tmp_path / "work"
+    (work / "data").mkdir(parents=True)
+    shutil.copytree(os.path.join(REPO, "data", "vocsplit"), work / "data" / "vocsplit")
+    for n in ("voc_traindict_full.txt", "voc_traindict_bbox_1shot.txt",
+              "voc_traindict_bbox_5shot.txt"):
+        shutil.copy(os.path.join(REPO, "data", n), work / "data" / n)
+    monkeypatch.chdir(work)
+    got = _same(str(tmp_path), lambda: t_prep.convert_fewlist(str(tmp_path / "voc") + "/"),
+                lambda: j_prep.convert_fewlist(str(tmp_path / "voc") + "/"))
+    assert any(p.endswith("voc_traindict_full.txt") for p in got[0])
+    assert len(got[0]) > 100
+
+
+@pytest.fixture(scope="module")
+def coco_ws(tmp_path_factory):
+    root = tmp_path_factory.mktemp("coco_prep")
+    d = make_voc_like(str(root / "coco_like"), n_images=60, classes_per_image=1, seed=5)
+    return {"root": str(root), "d": d, "coco": list(load_class_names("coco"))}
+
+
+@pytest.mark.parametrize("fn", ["get_bbox_fewlist", "get_bbox_fewlist_v2"])
+@pytest.mark.parametrize("shot", [1, 2])
+def test_coco_box_fewlists_are_identical(coco_ws, fn, shot):
+    tgt = coco_ws["coco"][:20]
+    args = (coco_ws["d"]["train_list"], shot, tgt, coco_ws["coco"])
+
+    def run(mod):
+        try:
+            return getattr(mod, fn)(*args, seed=3)
+        except AssertionError as e:  # candidates exhausted below 0.8 * shot
+            return f"AssertionError: {e}"
+
+    got, want = run(t_coco), run(j_coco)
+    assert got == want
+    assert sum(len(l) for l in got) > 0 if isinstance(got, list) else "No enough" in got
+
+
+def test_coco_label1c_traindict_and_valid_lists_are_byte_identical(coco_ws, monkeypatch):
+    root = coco_ws["root"]
+    with open(coco_ws["d"]["train_list"]) as f:
+        imgs = f.readlines()
+    got = _same(root, lambda: t_coco.gen_label1c(imgs[:12], coco_ws["coco"]),
+                lambda: j_coco.gen_label1c(imgs[:12], coco_ws["coco"]))
+    assert len(got[0]) >= 12
+    out = os.path.join(root, "dicts")
+    _same(root, lambda: t_coco.gen_traindict(coco_ws["d"]["train_list"], out, "train"),
+          lambda: j_coco.gen_traindict(coco_ws["d"]["train_list"], out, "train"))
+    monkeypatch.chdir(REPO)  # data/coco_novels.txt
+    img_dir = os.path.dirname(imgs[0].strip())
+    got = _same(root, lambda: t_coco.gen_valid_lists(os.path.join(root, "valid"), img_dir, cap=9),
+                lambda: j_coco.gen_valid_lists(os.path.join(root, "valid"), img_dir, cap=9))
+    assert "wrote" in got[1]
+
+
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    from fewshot_detection_tpu.config import parse_cfg
+    from fewshot_detection_tpu.models import weights_io
+    from fewshot_detection_tpu.models.darknet import init_params
+    from fewshot_detection_tpu.models.spec import build_spec
+
+    root = tmp_path_factory.mktemp("partial")
+    cfg = os.path.join(REPO, "cfg", "tiny-yolo-voc.cfg")
+    spec = build_spec(parse_cfg(cfg))
+    path = str(root / "full.weights")
+    weights_io.save_weights(path, [spec], [init_params(spec, 1)], seen=12345)
+    return str(root), cfg, path
+
+
+def _script(name, argv, monkeypatch):
+    monkeypatch.setattr(sys, "argv", [name, *argv])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(os.path.join(REPO, name), run_name="__main__")
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("cutoff", [0, 3, 7])
+def test_partial_torch_output_is_byte_identical_to_partial(weights, monkeypatch, cutoff):
+    root, cfg, full = weights
+    outs = {}
+    for name in ("partial_torch.py", "partial.py"):
+        out = os.path.join(root, f"{name}.{cutoff}.weights")
+        printed = _script(name, [cfg, full, out, str(cutoff)], monkeypatch)
+        assert printed == f"save {out}\n"
+        with open(out, "rb") as f:
+            outs[name] = f.read()
+    assert outs["partial_torch.py"] == outs["partial.py"]
+    if cutoff:
+        assert len(outs["partial.py"]) < os.path.getsize(full)
+
+
+def test_partial_torch_usage_matches_partial(monkeypatch):
+    got = _script("partial_torch.py", [], monkeypatch)
+    want = _script("partial.py", [], monkeypatch)
+    assert got == want.replace("partial.py", "partial_torch.py")

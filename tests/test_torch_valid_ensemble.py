@@ -148,9 +148,11 @@ def test_eval_datasets_equal_the_jax_packages(ws):
 
 
 def test_training_mode_datasets_are_refused(ws, monkeypatch):
-    """The training-mode datasets exist now (their parity with the JAX
-    package is in test_torch_train_data.py); what is still refused, rather
-    than ignored, is the switch to the native loader that they lack."""
+    """The training-mode datasets exist (their parity with the JAX package
+    is in test_torch_train_data.py), and so does the native loader they
+    switch to under FSD_NATIVE=1 (test_torch_native_data.py): that switch
+    is no longer refused. What is still refused, rather than ignored, is
+    training on more than one device."""
     from fewshot_detection_tpu_torch.cli.train_meta_cli import refuse_waiting_switches
 
     data_options, _, _, settings = ws["cfgs"]
@@ -160,8 +162,9 @@ def test_training_mode_datasets_are_refused(ws, monkeypatch):
     assert not ms.ensemble and len(ms) > 0
     refuse_waiting_switches()
     monkeypatch.setenv("FSD_NATIVE", "1")
+    refuse_waiting_switches()
     with pytest.raises(NotImplementedError):
-        refuse_waiting_switches()
+        refuse_waiting_switches(["cuda:0", "cuda:1"])
 
 
 def test_sweep_states_both_float32_precision_flags(ws, torch_files):

@@ -87,3 +87,29 @@ def assert_results_close(got, want, tol):
                                        rtol=tol, atol=tol)
             n_lines += 1
     return n_lines
+
+
+
+def jax_native_loader():
+    """The JAX package's native loader module, its library in place and
+    loaded. That loader compiles straight into its output file, so test
+    processes building it side by side (worker processes of a loader
+    included) could read each other's half-written library: here it is
+    compiled under a temporary name with the loader's own command and moved
+    into place whole. Fails when it cannot be built, because the JAX
+    datasets would then fall back to PIL, and a comparison with the port's
+    native path would compare different things."""
+    from fewshot_detection_tpu.native import loader
+
+    lib = loader._LIB
+    if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(loader._SRC):
+        tmp = f"{lib}.tmp.{os.getpid()}"
+        loader._LIB = tmp
+        try:
+            err = loader._build()
+        finally:
+            loader._LIB = lib
+        assert err is None, err
+        os.replace(tmp, lib)
+    assert loader.native_available(), loader.build_error()
+    return loader
