@@ -63,13 +63,20 @@ phases, each printing JSON lines:
            train_plain_cli derives lr and weight decay, from the same seeded
            weights on images painted from the seed: as `train`, with 22 + 22
            `bn_sums` launches a step; then `bn_sums_step` for its 22 layers
-  native   `g++ --version` and a probe of a few lines that includes jpeglib.h
-           and png.h, linked with -ljpeg -lpng (the host's system libraries,
-           checked before the port's code runs); when it builds and runs:
-           the port's native image library built with g++, PNGs written here
-           with zlib + struct decoding bit-equal to the arrays written, and
-           the pthread batch assembler's images/s on 64 VOC-sized images
-           decoded, augmented and resized to 416
+  native   the host toolchain (`g++ --version`, zlib's header and library;
+           nothing decides from it) and the port's native image library
+           built with g++ from its sources (its own PNG decoder on zlib and
+           baseline-JPEG decoder, -lz -pthread only): PNGs written by
+           data/png.py decoding bit-equal to the arrays written, over every
+           colour type, bit depth, row filter and Adam7 (to libpng's pixels,
+           data/png.libpng_rgb); the JPEG fixtures of
+           tests/data_torch/jpeg/ and the repo's predictions.jpg decoding to
+           their committed SHA-256 digests (the JAX package's libjpeg-turbo
+           decode), image_size equal on each, a progressive file refused
+           with an error that names it; decode throughput on the card's host
+           (MB/s of RGB output and images/s, one thread) and the pthread batch
+           assembler's images/s (64 VOC-sized images decoded, augmented and
+           resized to 416), for PNG and for JPEG
   ckpt     full-state checkpoints of the meta step (the `train` phase's
            cfgs, checkpoint, batch 64, 15-way, bfloat16): 2 steps, a
            synchronous save, an async save (FSD_ASYNC_CKPT=1) with a step
@@ -77,7 +84,7 @@ phases, each printing JSON lines:
            card bit-equal to host copies taken at the saves; a torch.profiler
            trace of 3 steps (utils/profiling.trace) whose summary
            (utils/trace_summary) names the bn_sums kernels, 29 + 29 a step
-  files    the slice's path on image files, when the probe passed: a VOC
+  files    the path on image files: a VOC
            devkit painted from the seed (PNG images at VOC sizes, XML
            annotations, 20 classes), data/prep.py's labels, labels_1c,
            10-shot box and image fewlists and traindict, few-shot tuning
@@ -89,6 +96,22 @@ phases, each printing JSON lines:
            .weights over the painted test list (FSD_NATIVE=1, result files for
            20 classes through the NMS kernel) and voc_eval's mAP (a number for
            painted data, not a quality claim)
+  workflow the paper's whole workflow (cli/workflow.py, the flagship mode)
+           stage by stage on the card: synthetic VOC, plain YOLOv2 on
+           cfg/yolo-voc.cfg, the conv-23 backbone, episodic base training and
+           few-shot tuning on cfg/darknet_dynamic.cfg + cfg/reweighting_net.cfg
+           at the workflow's batch of 32, the ensemble sweeps and voc_eval on
+           the base and the tuned checkpoints; depth cut as WORKFLOW_ARGS
+           says (listed as `reduced`); each stage's seconds, steps, first and
+           last loss and bn_sums / nms_rows launches, and the two mAPs (numbers
+           for synthetic data, not a quality claim)
+  path_inputs  every path above (serve, plain_serve, train, plain_train,
+           ckpt, files, workflow) runs with its kernel inputs recorded
+           (`PathInputs`, no launch of its own); afterwards each kernel is
+           held against its plain version there, as in `kernels`: bn_sums at
+           every distinct (M, C, dtype) a path launched, the workflow's
+           also at 608 px (the top of the multi-scale schedule), and
+           nms_rows on the first rows of each distinct (R, K) a sweep ranked
 
 `--phases` runs a subset (for finding faults); the result line is printed
 only when every phase ran. Then the card's name and power limit, one JSON
@@ -109,12 +132,11 @@ import json
 import os
 import random
 import re
-import struct
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -128,9 +150,9 @@ from fewshot_detection_tpu_torch.cli.train_plain_cli import (
 )
 from fewshot_detection_tpu_torch.config import parse_cfg
 from fewshot_detection_tpu_torch.config.settings import VOC_CLASSES
-from fewshot_detection_tpu_torch.data import prep
+from fewshot_detection_tpu_torch.data import png, prep
 from fewshot_detection_tpu_torch.data.augment import sample_augment_params
-from fewshot_detection_tpu_torch.eval import valid
+from fewshot_detection_tpu_torch.eval import device_pipeline, valid
 from fewshot_detection_tpu_torch.eval.detector import MetaDetector, PlainDetector
 from fewshot_detection_tpu_torch.eval.device_pipeline import (
     _decode_rank,
@@ -471,10 +493,10 @@ def compare_kernel(boxes: torch.Tensor, dsel: torch.Tensor, timed: bool) -> dict
 
 def phase_kernels(seed: int) -> int:
     rng = np.random.default_rng(seed)
-    cases = [("clustered", 320, 256), ("clustered", 240, 256), ("clustered", 16, 845),
-             ("clustered", 1, 1), ("adversarial", 64, 256), ("adversarial", 16, 845),
-             ("adversarial", 8, 33), ("edges", 20, 256), ("edges", 20, 100),
-             ("edges", 10, 845), ("edges", 10, 31), ("clustered", 37, 77)]
+    cases = [("clustered", 320, 256), ("clustered", 240, 256), ("clustered", 320, 845),
+             ("clustered", 16, 845), ("clustered", 1, 1), ("adversarial", 64, 256),
+             ("adversarial", 16, 845), ("adversarial", 8, 33), ("edges", 20, 256),
+             ("edges", 20, 100), ("edges", 10, 845), ("edges", 10, 31), ("clustered", 37, 77)]
     worst = 0
     results = []
     for kind, r, k in cases:
@@ -963,6 +985,37 @@ class KernelClock:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+class PathInputs:
+    """What the kernels' wrappers are given while a path runs, recorded by
+    standing in for the bn_sums forward launch and for the NMS call of
+    eval/device_pipeline.py, which add no launch of their own: every
+    distinct bn_sums (M, C, dtype), and a copy of the first (boxes, dsel)
+    of each distinct nms_rows (R, K)."""
+
+    def __init__(self):
+        self.bn = set()
+        self.nms = {}
+        self._fwd, self._nms = bn_mod._launch_forward, device_pipeline.nms_rows
+
+    def _record_fwd(self, x):
+        c = x.shape[-1]
+        self.bn.add((x.numel() // c, c, x.dtype))
+        return self._fwd(x)
+
+    def _record_nms(self, boxes, dsel, thresh):
+        if tuple(dsel.shape) not in self.nms:
+            self.nms[tuple(dsel.shape)] = (boxes.clone(), dsel.clone())
+        return self._nms(boxes, dsel, thresh)
+
+    def __enter__(self):
+        bn_mod._launch_forward = self._record_fwd
+        device_pipeline.nms_rows = self._record_nms
+        return self
+
+    def __exit__(self, *exc):
+        bn_mod._launch_forward, device_pipeline.nms_rows = self._fwd, self._nms
+
+
 def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
                   batch_size: int, bn_layers: int, picks: dict, dtype: torch.dtype) -> dict:
     """One training path (phase `tag`) in one dtype: `make_trainer(**kw)` builds its
@@ -1352,42 +1405,11 @@ def phase_bn_step(path: str, shapes: list, n_layers: int, seed: int) -> None:
 
 # VOC image sizes (width, height): the common shapes of VOC2007's JPEGImages
 VOC_SIZES = ((500, 375), (375, 500), (500, 333), (333, 500), (500, 366), (486, 500))
-PROBE_SOURCE = r"""
-#include <cstdio>
-#include <jpeglib.h>
-#include <png.h>
-int main() {
-  jpeg_decompress_struct cinfo;
-  jpeg_error_mgr jerr;
-  cinfo.err = jpeg_std_error(&jerr);
-  jpeg_create_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  std::printf("libjpeg %d, libpng %s\n", JPEG_LIB_VERSION, png_get_libpng_ver(nullptr));
-  return 0;
-}
-"""
 # the files phase: the devkit's size and the tuning run's shape
 FILES_TRAIN_IMAGES = 200
 FILES_TEST_IMAGES = 32
 FILES_SHOT = 10
 FILES_EPOCHS = (2, 3)  # the first run, then the resumed one
-
-
-def write_png(path: str, arr: np.ndarray) -> None:
-    """An 8-bit RGB (H, W, 3) or gray (H, W) PNG, written with zlib and
-    struct only (no image library on the card's host)."""
-    h, w = arr.shape[:2]
-    rows = np.ascontiguousarray(arr, np.uint8).reshape(h, -1)
-    raw = np.hstack([np.zeros((h, 1), np.uint8), rows]).tobytes()  # filter 0 a row
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if arr.ndim == 3 else 0, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
 def paint_voc_image(rng: np.random.Generator, first_cls: int):
@@ -1423,7 +1445,7 @@ def paint_devkit(root: str, seed: int) -> str:
         split = "train" if i < FILES_TRAIN_IMAGES else "test"
         imgid = f"{i:06d}"
         img, objs = paint_voc_image(rng, i % 20)
-        write_png(os.path.join(voc, "JPEGImages", imgid + ".jpg"), img)
+        png.write_png(os.path.join(voc, "JPEGImages", imgid + ".jpg"), img, level=1)
         xml = "".join(
             f"<object><name>{VOC_CLASSES[c]}</name><pose>Unspecified</pose>"
             f"<truncated>0</truncated><difficult>0</difficult><bndbox><xmin>{x1}</xmin>"
@@ -1447,56 +1469,90 @@ def paint_devkit(root: str, seed: int) -> str:
     return os.path.join(root, "VOCdevkit")
 
 
-def probe_host_toolchain() -> dict:
-    """g++'s version; whether jpeglib.h, png.h and zlib.h (what a decoder
-    without libjpeg and libpng would build on) each compile; which libjpeg,
-    libpng and zlib the dynamic linker knows; then a probe of a few lines
-    including both headers, linked with -ljpeg -lpng, and run. This checks
-    the host's system libraries before any of the port's code runs; the
-    outcome decides whether the native and files phases can run at all."""
-    try:
-        gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
-                             timeout=60).stdout.splitlines()[0]
-    except OSError as e:
-        return {"ok": False, "gxx": None, "reason": f"g++ cannot run: {e}"}
+def host_toolchain() -> dict:
+    """What the native library builds with on this host: g++'s version,
+    whether zlib.h compiles, and which zlib the dynamic linker knows. A
+    report only: the build itself raises with the compiler's output when it
+    fails."""
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
     known = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60).stdout
-    report = {"gxx": gxx, "runtime_libraries": sorted(
-        {line.split()[0] for line in known.splitlines() if re.search(r"lib(jpeg|png\d*|z)\.so", line)})}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_probe_") as d:
-        for header in ("jpeglib.h", "png.h", "zlib.h"):
-            src = os.path.join(d, "header.cpp")
-            with open(src, "w") as f:
-                f.write(f"#include <cstdio>\n#include <{header}>\n")
-            report[header] = subprocess.run(
-                ["g++", "-std=c++17", "-fsyntax-only", src], capture_output=True,
-                timeout=120).returncode == 0
-        src, exe = os.path.join(d, "probe.cpp"), os.path.join(d, "probe")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zlib_") as d:
+        src = os.path.join(d, "zlib_header.cpp")
         with open(src, "w") as f:
-            f.write(PROBE_SOURCE)
-        cc = subprocess.run(["g++", "-std=c++17", src, "-o", exe, "-ljpeg", "-lpng"],
-                            capture_output=True, text=True, timeout=120)
-        if cc.returncode != 0:
-            return {"ok": False, **report,
-                    "reason": "a probe including jpeglib.h and png.h and linked with "
-                              f"-ljpeg -lpng does not build: {cc.stderr.strip()[-600:]}"}
-        run = subprocess.run([exe], capture_output=True, text=True, timeout=60)
-        if run.returncode != 0:
-            return {"ok": False, **report, "reason": f"the probe does not run: {run.stderr}"}
-    return {"ok": True, **report, "libraries": run.stdout.strip()}
+            f.write("#include <zlib.h>\n")
+        zlib_h = subprocess.run(["g++", "-std=c++17", "-fsyntax-only", src],
+                                capture_output=True, timeout=120).returncode == 0
+    return {"gxx": gxx, "zlib.h": zlib_h, "runtime_zlib": sorted(
+        {line.split()[0] for line in known.splitlines() if re.search(r"libz\.so", line)})}
+
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data_torch", "jpeg")
+
+
+def sha256_rgb(arr: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(arr, np.uint8).tobytes()).hexdigest()
+
+
+def check_jpeg_fixtures(pipe) -> dict:
+    """Every file of tests/data_torch/jpeg/manifest.json (and predictions.jpg):
+    its size, and its decode's digest or the refusal its error must name."""
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    outcome = {"decoded": 0, "refused": 0, "fails": 0}
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(REPO, entry["path"])
+        if entry["size"] is None:
+            with contextlib.suppress(IOError):
+                pipe.image_size(path)
+                check(False, f"{name}: image_size read a size libjpeg refuses")
+        else:
+            check(list(pipe.image_size(path)) == entry["size"], f"{name}: image_size")
+        if entry["port"] in ("refused", "fails"):
+            try:
+                pipe.decode(path)
+            except IOError as e:
+                check(path in str(e) and entry.get("reason", "") in str(e), f"{name}: {e}")
+                outcome[entry["port"]] += 1
+                continue
+            check(False, f"{name} decoded, but the port must refuse it")
+        check(sha256_rgb(pipe.decode(path)) == entry["port"], f"{name}: decode digest")
+        outcome["decoded"] += 1
+    return outcome
+
+
+def decode_rates(pipe, paths: list, params: np.ndarray) -> dict:
+    """Decode on one thread (RGB MB/s and images/s, the best of 3 passes)
+    and the batch assembler's images/s (decode + augment + resize to 416 on
+    the pipe's threads, best of 3)."""
+    one, batch = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nbytes = sum(pipe.decode(p).nbytes for p in paths)
+        one.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out, fails = pipe.load_batch(paths, 416, 416, params)
+        batch.append(time.perf_counter() - t0)
+        check(fails == 0 and np.isfinite(out).all(), "the batch assembler failed an image")
+    return {"images": len(paths), "rgb_bytes": nbytes,
+            "decode_1thread_mb_per_s": nbytes / min(one) / 1e6,
+            "decode_1thread_images_per_s": len(paths) / min(one),
+            "assembler_images_per_s": len(paths) / min(batch), "decode_s": one,
+            "assembler_s": batch}
 
 
 def phase_native(seed: int, smi: str) -> dict:
-    """The host toolchain, then (when the probe passed) the port's native
-    library: its build, PNGs written here decoding bit-equal to the arrays
-    written, and the pthread batch assembler's images/s on 64 VOC-sized
-    images resized to 416."""
-    probe = probe_host_toolchain()
-    emit("native_probe", **probe)
-    if not probe["ok"]:
-        return probe
+    """The host toolchain and the port's native library: its build, PNGs
+    written here decoding bit-equal to what libpng would give, the JPEG
+    fixtures to their committed digests, a progressive file refused, and
+    the decode and batch-assembler rates for PNG and for JPEG."""
+    report = {"card": smi, **host_toolchain()}
     t0 = time.perf_counter()
     build_native_library()
-    build_s = time.perf_counter() - t0
+    report["build_s"] = time.perf_counter() - t0
+    report["library"] = os.path.relpath(native_library_path(), REPO)
     pipe = NativeImagePipe()
     rng = np.random.default_rng(seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as d:
@@ -1506,38 +1562,63 @@ def phase_native(seed: int, smi: str) -> dict:
                  rng.integers(0, 256, (61, 40), dtype=np.uint8)]
         for i, arr in enumerate(cases):
             path = os.path.join(d, f"case{i}.png")
-            write_png(path, arr)
+            png.write_png(path, arr)
             want = arr if arr.ndim == 3 else np.repeat(arr[..., None], 3, axis=2)
             check(pipe.image_size(path) == (arr.shape[1], arr.shape[0]), f"size of case {i}")
             check(np.array_equal(pipe.decode(path), want),
                   f"PNG case {i} {arr.shape} does not decode to the array written")
-        paths, raws = [], []
+        matrix = 0
+        for ctype, depth in png.KINDS:
+            for interlace in (False, True):
+                for filters in ("cycle", 4):
+                    h, w = (int(v) for v in rng.integers(1, 40, 2))
+                    hi = min(1 << depth, 200) if ctype == 3 else 1 << depth
+                    samples = rng.integers(0, hi, (h, w, png.CHANNELS[ctype]))
+                    palette = rng.integers(0, 256, (hi, 3)) if ctype == 3 else None
+                    path = os.path.join(d, f"m{ctype}_{depth}_{int(interlace)}_{filters}.png")
+                    png.write_png(path, samples, ctype, depth, filters=filters,
+                                  interlace=interlace, palette=palette)
+                    check(pipe.image_size(path) == (w, h), f"size of {path}")
+                    check(np.array_equal(pipe.decode(path),
+                                         png.libpng_rgb(samples, ctype, depth, palette)),
+                          f"PNG colour type {ctype}, {depth} bits, interlace {interlace}, "
+                          f"filters {filters}: not libpng's pixels")
+                    matrix += 1
+        report.update(png_cases_bit_equal=len(cases), png_matrix_bit_equal=matrix,
+                      jpeg_fixtures=check_jpeg_fixtures(pipe))
+        progressive = os.path.join(JPEG_FIXTURES, "progressive.jpg")
+        try:
+            pipe.decode(progressive)
+            check(False, "a progressive JPEG decoded")
+        except IOError as e:
+            check(progressive in str(e) and "progressive" in str(e), str(e))
+            report["progressive_refusal"] = str(e).replace(REPO + os.sep, "")
+        # rates: 64 VOC-sized painted PNGs, 64 copies of predictions.jpg
+        pngs, raws = [], []
         for i in range(64):
             img, _ = paint_voc_image(rng, i % 20)
-            paths.append(os.path.join(d, f"batch{i:02d}.jpg"))
-            write_png(paths[-1], img)
+            pngs.append(os.path.join(d, f"batch{i:02d}.png"))
+            png.write_png(pngs[-1], img, level=1)
             raws.append(img)
+        jpgs = []
+        for i in range(64):
+            jpgs.append(os.path.join(d, f"photo{i:02d}.jpg"))
+            shutil.copyfile(os.path.join(REPO, "predictions.jpg"), jpgs[-1])
         draw = random.Random(seed)
-        params = np.asarray([
-            [p.pleft, p.pright, p.ptop, p.pbot, p.flip, p.dhue, p.dsat, p.dexp]
-            for p in (sample_augment_params(r.shape[1], r.shape[0], draw) for r in raws)],
-            np.float32)
-        times, raw_times = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            batch, fails = pipe.load_batch(paths, 416, 416, params)
-            times.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            from_raw, raw_fails = pipe.load_batch_raw(raws, 416, 416, params)
-            raw_times.append(time.perf_counter() - t0)
-            check(fails == raw_fails == 0, "the batch assembler failed an image")
+
+        def params_for(sizes):
+            return np.asarray([
+                [p.pleft, p.pright, p.ptop, p.pbot, p.flip, p.dhue, p.dsat, p.dexp]
+                for p in (sample_augment_params(w, h, draw) for w, h in sizes)], np.float32)
+
+        png_params = params_for([(r.shape[1], r.shape[0]) for r in raws])
+        report["png_rates"] = decode_rates(pipe, pngs, png_params)
+        report["jpeg_rates"] = decode_rates(pipe, jpgs, params_for([(400, 300)] * 64))
+        batch, fails = pipe.load_batch(pngs, 416, 416, png_params)
+        from_raw, raw_fails = pipe.load_batch_raw(raws, 416, 416, png_params)
+        check(fails == raw_fails == 0, "the batch assembler failed an image")
         check(np.array_equal(batch, from_raw), "decode+augment differs from augment of the decode")
-        check(batch.shape == (64, 416, 416, 3) and np.isfinite(batch).all(), "batch")
-    report = {**probe, "card": smi, "build_s": build_s, "library": os.path.relpath(
-        native_library_path(), REPO), "png_cases_bit_equal": len(cases),
-        "host_threads": pipe.n_threads, "batch": [64, 416, 416, 3],
-        "load_batch_s": times, "load_batch_images_per_s": 64 / min(times),
-        "load_batch_raw_s": raw_times, "load_batch_raw_images_per_s": 64 / min(raw_times)}
+    report["host_threads"] = pipe.n_threads
     emit("native", **report)
     return report
 
@@ -1685,16 +1766,12 @@ LOSS_RE = re.compile(r"^(\d+): nGT \d+, .* total (\S+)$", re.M)
 TIMER_RE = re.compile(r"^\S+ \S+ (data .* images/s)$", re.M)
 
 
-def phase_files(seed: int, smi: str, probe: dict) -> dict | None:
+def phase_files(seed: int, smi: str) -> dict:
     """The slice's path on image files: a painted VOC devkit, the port's
     data/prep.py, few-shot tuning through train_meta_cli.main from the
     tracked checkpoint on the native loader in worker processes with
     full-state checkpoints and traces, a resumed run, then the ensemble
-    sweep over the test list and voc_eval. Returns the kernels' launches, or
-    None when the host's toolchain probe failed."""
-    if not probe["ok"]:
-        emit("files", ran=False, reason="the native phase's probe failed: " + probe["reason"])
-        return None
+    sweep over the test list and voc_eval. Returns the kernels' launches."""
     report = {"card": smi}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
@@ -1817,8 +1894,133 @@ def phase_files(seed: int, smi: str, probe: dict) -> dict | None:
                           nms_launches=nms_launches, result_files=len(files), map_painted=m_ap)
         finally:
             os.chdir(cwd)
-    emit("files", ran=True, **report)
+    emit("files", **report)
     return {"bn": bn_total, "nms": {"launches": nms_launches}}
+
+
+# the workflow phase's cuts, against the flagship mode's defaults (512 + 128
+# images, 1600 plain and 3500 base batches, tuning 200 epochs / repeat 20):
+# the fewest images that fill every class's 10-shot box budget at seed 7,
+# and the fewest batches that reach the plain and base stages' first
+# checkpoint (written every 10 epochs)
+WORKFLOW_ARGS = ("--n-train", "220", "--n-test", "32", "--plain-batches", "70",
+                 "--base-batches", "70", "--tune-max-epoch", "1", "--tune-repeat", "1")
+WORKFLOW_LOGS = {"plain": "plain", "base": "base", "tune": "tune", "evalb": "eval_base",
+                 "evalt": "eval_tune"}
+WORKFLOW_BN_LAYERS = {"plain": PLAIN_BN_LAYERS, "base": BN_LAYERS, "tune": BN_LAYERS}
+# a barely trained head passes most of a row's 845 anchors at the sweep's
+# threshold: a buffer of every anchor keeps each batch on the device path (a
+# batch whose rows overflow the default 256 is rightly redone on the host,
+# with the same rows, and launches no kernel)
+WORKFLOW_EVAL_ENV = {"FSD_DEVICE_NMS_K": str(PLAIN_TOP_K)}
+
+
+def phase_workflow(smi: str) -> dict:
+    """The paper's whole workflow in the flagship mode, stage by stage
+    through cli/workflow.main on the card, with each stage's kernel launches
+    read right after it. No base artifact is read or written (both of the
+    workflow's artifact directories point into the run's own temporary
+    directory)."""
+    from fewshot_detection_tpu_torch.cli import workflow
+
+    report = {"card": smi, "reduced": dict(zip(WORKFLOW_ARGS[::2], WORKFLOW_ARGS[1::2])),
+              "stages": {}}
+    totals = {"fwd": 0, "bwd": 0, "layout_copies": 0, "nms": 0}
+    artifacts = workflow.ARTIFACTS, workflow.SEED_ARTIFACTS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as d:
+        workflow.ARTIFACTS = workflow.SEED_ARTIFACTS = os.path.join(d, "artifacts")
+        root = os.path.join(d, "root")
+        try:
+            for name, _ in workflow.STAGES:
+                torch.cuda.synchronize()
+                bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+                nms_rows.launches = 0
+                t0 = time.perf_counter()
+                out = run_cli(lambda: workflow.main(
+                    ["--root", root, "--device", "cuda", "--stage", name, *WORKFLOW_ARGS]),
+                    WORKFLOW_EVAL_ENV if name.startswith("eval") else {})
+                torch.cuda.synchronize()
+                stage = {"seconds": time.perf_counter() - t0, "bn_sums_fwd": bn_sums.launches,
+                         "bn_sums_bwd": bn_sums.backward_launches, "nms_rows": nms_rows.launches}
+                totals["fwd"] += bn_sums.launches
+                totals["bwd"] += bn_sums.backward_launches
+                totals["layout_copies"] += bn_sums.layout_copies
+                totals["nms"] += nms_rows.launches
+                if name in WORKFLOW_LOGS:
+                    with open(os.path.join(root, "logs", f"{WORKFLOW_LOGS[name]}.log")) as f:
+                        text = f.read()
+                    losses = [float(v) for _, v in LOSS_RE.findall(text)]
+                    stage["steps"] = len(losses)
+                    if name in WORKFLOW_BN_LAYERS:
+                        check(losses and all(np.isfinite(v) for v in losses),
+                              f"workflow {name}: loss lines {losses[:5]}")
+                        n = WORKFLOW_BN_LAYERS[name] * len(losses)
+                        check((bn_sums.launches, bn_sums.backward_launches) == (n, n),
+                              f"workflow {name}: {len(losses)} steps launched "
+                              f"{bn_sums.launches} + {bn_sums.backward_launches} bn_sums kernels")
+                        stage.update(first_loss=losses[0], last_loss=losses[-1],
+                                     step_timer=TIMER_RE.findall(text))
+                    else:
+                        check(nms_rows.launches >= 1, f"workflow {name}: no NMS launch")
+                summary = json.loads(out.rsplit("WORKFLOW ", 1)[1].splitlines()[0])
+                check(name in summary, f"workflow stage {name} did not finish")
+                report["stages"][name] = stage
+        finally:
+            workflow.ARTIFACTS, workflow.SEED_ARTIFACTS = artifacts
+    for name in ("evalb", "evalt"):
+        m_ap = summary[name]["mean_ap"]
+        check(np.isfinite(m_ap), f"workflow {name}: mAP {m_ap}")
+        report[f"{name}_map"] = {k: summary[name][k] for k in ("mean_ap", "base_mean", "novel_mean")}
+    report["workflow"] = {k: {kk: v for kk, v in summary[k].items() if kk != "aps"}
+                          for k in summary}
+    report["seconds"] = sum(st["seconds"] for st in report["stages"].values())
+    emit("workflow", **report)
+    return {"bn": {k: totals[k] for k in ("fwd", "bwd", "layout_copies")},
+            "nms": {"launches": totals["nms"]}}
+
+
+# the multi-scale schedule's sizes run from 320 to 608 px; the workflow's
+# cut run stays at 416, so its layers are also held at the top of the range
+MULTISCALE_TOP = 608
+
+
+def phase_path_inputs(recorded: dict, seed: int) -> dict:
+    """Each kernel against its plain version at the inputs every path gave
+    it (`PathInputs`): bn_sums on activations made at each distinct (M, C,
+    dtype), with the workflow's 416 px shapes also taken to
+    MULTISCALE_TOP (M * 19^2 / 13^2); nms_rows on the rows the path's
+    sweeps ranked. Returns the compared bn_sums cases and the worst NMS
+    mismatch."""
+    report, cases, worst = {}, [], 0
+    done = set()
+    t0 = time.perf_counter()
+    for path, rec in recorded.items():
+        shapes = set(rec.bn)
+        if path == "workflow":
+            top = (MULTISCALE_TOP // 32) ** 2
+            shapes |= {(m // 169 * top, c, dt) for m, c, dt in rec.bn if m % 169 == 0}
+        bn_cases = []
+        for i, (m, c, dtype) in enumerate(sorted(shapes, key=lambda t: (str(t[2]), t[1], t[0]))):
+            if (m, c, dtype) not in done:
+                res = compare_bn_sums(make_activation(seed + i, m, c, dtype), seed + i)
+                check(res["layout_copies"] == 0, "a contiguous input was copied")
+                done.add((m, c, dtype))
+                cases.append(res)
+                bn_cases.append([m, c, res["dtype"], res["path"], res["kernel_err_over_sum_abs"],
+                                 res["backward_max_abs_err"]])
+                torch.cuda.empty_cache()
+        nms_cases = []
+        for (r, k), (boxes, dsel) in sorted(rec.nms.items()):
+            res = compare_kernel(boxes, dsel, timed=False)
+            worst = max(worst, res["max_mismatch"])
+            nms_cases.append({k2: res[k2] for k2 in ("shape", "valid", "kept", "max_mismatch")})
+        report[path] = {"bn_shapes": len(shapes), "bn_compared": bn_cases, "nms": nms_cases}
+    emit("path_inputs", seconds=time.perf_counter() - t0, bn_compared=len(cases),
+         tolerance_over_sum_abs=SUM_TOL,
+         bn_case_fields=["m", "c", "dtype", "path", "err_over_sum_abs", "backward_max_abs_err"],
+         **report)
+    check(worst == 0, f"nms_rows disagrees with nms_rows_reference on a path's rows: {worst}")
+    return {"cases": cases, "nms_worst": worst}
 
 
 def kernels_line(served: dict, worst: int, bn: dict, trained: dict) -> dict:
@@ -1901,7 +2103,7 @@ def bn_kernel_entries(bn: dict, trained: dict) -> list:
 
 
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
-          "native", "ckpt", "files")
+          "native", "ckpt", "files", "workflow")
 
 
 def main() -> int:
@@ -1928,25 +2130,29 @@ def main() -> int:
     if "kernels" in phases:
         worst = phase_kernels(args.seed)
         bn = phase_bn_kernels(args.seed)
-    served, trained = {}, {}
+    served, trained, recorded = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
-        if "serve" in phases:
-            served["serve"] = phase_serve(args.seed, args.batches, outdir)
-        if "plain_serve" in phases:
-            served["plain_serve"] = phase_plain_serve(args.seed, args.batches, outdir)
+        for path, fn in (("serve", phase_serve), ("plain_serve", phase_plain_serve)):
+            if path in phases:
+                with PathInputs() as recorded[path]:
+                    served[path] = fn(args.seed, args.batches, outdir)
     for path, fn, n_layers in (("train", phase_train, BN_LAYERS),
                                ("plain_train", phase_plain_train, PLAIN_BN_LAYERS)):
         if path in phases:
-            trained[path] = fn(args.seed)
+            with PathInputs() as recorded[path]:
+                trained[path] = fn(args.seed)
             phase_bn_step(path, trained[path]["bn_layer_shapes"], n_layers, args.seed)
-    if "native" in phases or "files" in phases:
-        probe = phase_native(args.seed, smi) if "native" in phases else probe_host_toolchain()
+    if "native" in phases:
+        phase_native(args.seed, smi)
     if "ckpt" in phases:
-        trained["ckpt"] = phase_ckpt(args.seed, smi)
-    if "files" in phases:
-        files = phase_files(args.seed, smi, probe)
-        if files is not None:
-            trained["files"], served["files"] = files["bn"], files["nms"]
+        with PathInputs() as recorded["ckpt"]:
+            trained["ckpt"] = phase_ckpt(args.seed, smi)
+    for path, fn in (("files", phase_files), ("workflow", lambda seed, smi: phase_workflow(smi))):
+        if path in phases:
+            with PathInputs() as recorded[path]:
+                got = fn(args.seed, smi)
+            trained[path], served[path] = got["bn"], got["nms"]
+    held = phase_path_inputs(recorded, args.seed)
     for path, got in served.items():
         check(got["launches"] > 0, f"the {path} path never launched the NMS kernel")
     for path, got in trained.items():
@@ -1956,7 +2162,8 @@ def main() -> int:
         print(f"ran only {phases}: no result line", file=sys.stderr)
         return 2
 
-    line = kernels_line(served, worst, bn, trained)
+    bn["cases"] += held["cases"]
+    line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

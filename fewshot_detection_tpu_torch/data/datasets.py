@@ -117,6 +117,13 @@ def ram_cache() -> DecodedCache | None:
     return _ram_cache
 
 
+def reset_ram_cache() -> None:
+    """Drop the process-wide cache; the next use builds it anew from the
+    environment (for a caller that runs several stages in one process)."""
+    global _ram_cache, _ram_cache_init
+    _ram_cache, _ram_cache_init = None, False
+
+
 def topath(p: str) -> str:
     """Dataset-root remapping hook (the reference hardcoded a cluster
     rewrite, dataset.py:17-18). Configure with FSD_PATH_MAP="old=new[,o=n]".

@@ -1,15 +1,20 @@
 """ctypes binding + on-demand build of the native image pipeline.
 
-The shared library is compiled from `src/imagepipe.cpp` (host C++: libjpeg,
-libpng, pthreads) with `g++` at first use, never at import, with the flags
-the JAX package uses, into the package's `_build/` directory. Its name
-carries a hash of the source, the compiler and the flags, and it is written
-under a temporary name and then renamed, so processes that build at the same
-time do not collide and an edited source is rebuilt.
+The shared library is compiled from the sources in `src/` (host C++:
+`imagepipe.cpp`, the pipeline; `pngdec.cpp` and `jpegdec.cpp`, the port's own
+decoders; zlib and pthreads, no system image library) with `g++` at first
+use, never at import, with the flags the JAX package uses, into the
+package's `_build/` directory. Its name carries a hash of every source, the
+compiler and the flags, and it is written under a temporary name and then
+renamed, so processes that build at the same time do not collide and an
+edited source is rebuilt.
 
-A missing compiler, missing headers or libraries, or a failed build raise
+A missing compiler, missing zlib headers, or a failed build raise
 `RuntimeError` with the compiler's output: the port does not fall back to
-PIL, which the machine with the card does not have.
+PIL, which the machine with the card does not have. A file that does not
+decode raises `IOError` naming the file and the reason, among them the JPEG
+codings the decoder refuses (progressive, arithmetic, lossless, 12-bit,
+CMYK).
 
 The native path is an opt-in throughput path (`FSD_NATIVE=1`):
 interpolation is a PIL-style triangle filter, within a few uint8 counts of
@@ -27,10 +32,13 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "src", "imagepipe.cpp")
+SOURCES = (SOURCE, os.path.join(_HERE, "src", "pngdec.cpp"),
+           os.path.join(_HERE, "src", "jpegdec.cpp"))
+HEADERS = (os.path.join(_HERE, "src", "decoders.h"),)
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-LIBS = ("-ljpeg", "-lpng")
+LIBS = ("-lz",)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -40,6 +48,7 @@ _c_float_p = ctypes.POINTER(ctypes.c_float)
 _c_u8_p = ctypes.POINTER(ctypes.c_uint8)
 _SIGNATURES = {
     "fsd_image_size": [ctypes.c_char_p, _c_int_p, _c_int_p],
+    "fsd_decode_error": [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int],
     "fsd_decode": [ctypes.c_char_p, _c_u8_p, ctypes.c_int, _c_int_p, _c_int_p],
     "fsd_load_augment": [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
@@ -65,15 +74,17 @@ _SIGNATURES = {
 
 
 def build_command(out: str) -> list[str]:
-    return [CXX, *CXX_FLAGS, SOURCE, "-o", out, *LIBS]
+    return [CXX, *CXX_FLAGS, *SOURCES, "-o", out, *LIBS]
 
 
 def library_path() -> str:
-    """Where the library for this source, compiler and flags lives."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha1(
-            f.read() + " ".join(build_command("")).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libimagepipe_{tag}.so")
+    """Where the library for these sources, compiler and flags lives."""
+    h = hashlib.sha1()
+    for path in (*SOURCES, *HEADERS):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(build_command("")).encode())
+    return os.path.join(BUILD_DIR, f"libimagepipe_{h.hexdigest()[:12]}.so")
 
 
 def build_library() -> str:
@@ -138,13 +149,20 @@ class NativeImagePipe:
         self.lib = load_library()
         self.n_threads = n_threads or max(os.cpu_count() or 1, 1)
 
+    def failure(self, path: str, size_only: bool = False) -> IOError:
+        """The error for a file that did not decode: its name and why."""
+        msg = ctypes.create_string_buffer(256)
+        self.lib.fsd_decode_error(path.encode(), int(size_only), msg, len(msg))
+        why = msg.value.decode(errors="replace") or "unknown reason"
+        return IOError(f"cannot decode {path}: {why}")
+
     def image_size(self, path: str) -> tuple[int, int]:
         """(width, height) from the file's header, without decoding pixels."""
         w = ctypes.c_int()
         h = ctypes.c_int()
         rc = self.lib.fsd_image_size(path.encode(), ctypes.byref(w), ctypes.byref(h))
         if rc != 0:
-            raise IOError(f"cannot decode {path}")
+            raise self.failure(path, size_only=True)
         return w.value, h.value
 
     def decode(self, path: str) -> np.ndarray:
@@ -155,14 +173,14 @@ class NativeImagePipe:
             ctypes.byref(ctypes.c_int()), ctypes.byref(ctypes.c_int()),
         )
         if rc != 0:
-            raise IOError(f"cannot decode {path}")
+            raise self.failure(path)
         return buf
 
     def load_plain(self, path: str, width: int, height: int) -> np.ndarray:
         out = np.empty((height, width, 3), np.float32)
         rc = self.lib.fsd_load_plain(path.encode(), width, height, _fptr(out))
         if rc != 0:
-            raise IOError(f"cannot decode {path}")
+            raise self.failure(path)
         return out
 
     def load_augment(
@@ -176,7 +194,7 @@ class NativeImagePipe:
             flip, dhue, dsat, dexp, _fptr(out),
         )
         if rc != 0:
-            raise IOError(f"cannot decode {path}")
+            raise self.failure(path)
         return out
 
     def load_batch(

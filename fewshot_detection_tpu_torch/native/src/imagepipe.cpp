@@ -1,7 +1,10 @@
 // Native image-loading pipeline of fewshot_detection_tpu_torch: host C++,
-// no device code. The port keeps its own copy of the JAX package's
-// native/src/imagepipe.cpp; the code is the same, so the two libraries,
-// built with the same compiler and flags, give the same bytes.
+// no device code. Everything after the decoders is the JAX package's
+// native/src/imagepipe.cpp, byte for byte, so the two libraries, built with
+// the same compiler and flags, give the same bytes for the same pixels. The
+// decoders differ: the JAX package's library calls libjpeg and libpng, this
+// one calls the port's own (pngdec.cpp on zlib, jpegdec.cpp), which give
+// the same pixels and need no system image library.
 //
 // It implements JPEG/PNG decode, crop-jitter, filtered resize, horizontal
 // flip, PIL-point-table HSV distortion, binary mask synthesis, and a
@@ -23,12 +26,11 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <string>
 #include <thread>
 #include <vector>
 
-#include <jpeglib.h>
-#include <png.h>
-#include <setjmp.h>
+#include "decoders.h"
 
 namespace {
 
@@ -39,135 +41,119 @@ struct ImageU8 {
 
 // ---------------------------------------------------------------- decode
 
-struct JpegErr {
-  jpeg_error_mgr pub;
-  jmp_buf jump;
-};
-
-void jpeg_err_exit(j_common_ptr cinfo) {
-  JpegErr* err = reinterpret_cast<JpegErr*>(cinfo->err);
-  longjmp(err->jump, 1);
-}
-
-bool decode_jpeg(FILE* fp, ImageU8* out) {
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = jpeg_err_exit;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_decompress(&cinfo);
-    return false;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, fp);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  out->w = cinfo.output_width;
-  out->h = cinfo.output_height;
-  out->rgb.resize(size_t(out->w) * out->h * 3);
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = out->rgb.data() + size_t(cinfo.output_scanline) * out->w * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return true;
-}
-
-bool decode_png(FILE* fp, ImageU8* out) {
-  png_structp png =
-      png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  if (!png) return false;
-  png_infop info = png_create_info_struct(png);
-  if (!info) {
-    png_destroy_read_struct(&png, nullptr, nullptr);
-    return false;
-  }
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  png_init_io(png, fp);
-  png_read_info(png, info);
-  png_set_expand(png);          // palettes / low bit depths -> 8-bit
-  png_set_strip_16(png);        // 16-bit -> 8-bit
-  png_set_strip_alpha(png);     // drop alpha
-  png_set_gray_to_rgb(png);     // gray -> RGB
-  png_read_update_info(png, info);
-  out->w = png_get_image_width(png, info);
-  out->h = png_get_image_height(png, info);
-  out->rgb.resize(size_t(out->w) * out->h * 3);
-  std::vector<png_bytep> rows(out->h);
-  for (int y = 0; y < out->h; ++y)
-    rows[y] = out->rgb.data() + size_t(y) * out->w * 3;
-  png_read_image(png, rows.data());
-  png_read_end(png, nullptr);
-  png_destroy_read_struct(&png, &info, nullptr);
-  return true;
-}
-
 enum class Format { kUnknown, kJpeg, kPng };
 
-// Sniff the container format and rewind; shared by decode and size probe.
-Format sniff_format(FILE* fp) {
-  uint8_t magic[8] = {0};
-  size_t n = fread(magic, 1, 8, fp);
-  rewind(fp);
-  if (n >= 2 && magic[0] == 0xFF && magic[1] == 0xD8) return Format::kJpeg;
-  if (n >= 8 && !png_sig_cmp(magic, 0, 8)) return Format::kPng;
+constexpr uint8_t kPngSignature[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+
+Format sniff_format(const std::vector<uint8_t>& d) {
+  if (d.size() >= 2 && d[0] == 0xFF && d[1] == 0xD8) return Format::kJpeg;
+  if (d.size() >= 8 && !std::memcmp(d.data(), kPngSignature, 8)) return Format::kPng;
   return Format::kUnknown;
 }
 
-bool decode_file(const char* path, ImageU8* out) {
+bool read_file(const char* path, std::vector<uint8_t>* d, std::string* err) {
   FILE* fp = fopen(path, "rb");
-  if (!fp) return false;
+  if (!fp) {
+    *err = "cannot open the file";
+    return false;
+  }
+  uint8_t buf[1 << 16];
+  size_t n;
+  while ((n = fread(buf, 1, sizeof buf, fp)) > 0) d->insert(d->end(), buf, buf + n);
+  bool ok = !ferror(fp);
+  fclose(fp);
+  if (!ok) *err = "read error";
+  return ok;
+}
+
+bool decode_file(const char* path, ImageU8* out, std::string* err) {
+  std::vector<uint8_t> d;
+  if (!read_file(path, &d, err)) return false;
+  fsd::Rgb8 img;
+  bool ok;
+  switch (sniff_format(d)) {
+    case Format::kJpeg: ok = fsd::jpeg_decode(d.data(), d.size(), &img, err); break;
+    case Format::kPng: ok = fsd::png_decode(d.data(), d.size(), &img, err); break;
+    default: *err = "neither a JPEG nor a PNG file"; return false;
+  }
+  if (!ok) return false;
+  out->w = img.w;
+  out->h = img.h;
+  out->rgb = std::move(img.rgb);
+  return true;
+}
+
+bool decode_file(const char* path, ImageU8* out) {
+  std::string err;
+  return decode_file(path, out, &err);
+}
+
+// Header-only dimension probe: no pixel decode. The file is read in
+// growing pieces until its header gives the size (libjpeg and libpng stop
+// at SOF and IHDR too); the size parsers read forward only, so a failure
+// on a piece that is not the whole file is retried on a longer one, and
+// the answer is the whole file's.
+bool probe_size(const char* path, int* w, int* h, std::string* err) {
+  FILE* fp = fopen(path, "rb");
+  if (!fp) {
+    *err = "cannot open the file";
+    return false;
+  }
+  std::vector<uint8_t> d;
   bool ok = false;
-  switch (sniff_format(fp)) {
-    case Format::kJpeg: ok = decode_jpeg(fp, out); break;
-    case Format::kPng: ok = decode_png(fp, out); break;
-    default: break;
+  for (size_t want = size_t(1) << 14;; want *= 4) {
+    const size_t have = d.size();
+    d.resize(want);
+    d.resize(have + fread(d.data() + have, 1, want - have, fp));
+    if (ferror(fp)) {
+      *err = "read error";
+      break;
+    }
+    const Format format = sniff_format(d);
+    if (format == Format::kJpeg) ok = fsd::jpeg_size(d.data(), d.size(), w, h, err);
+    if (format == Format::kPng) ok = fsd::png_size(d.data(), d.size(), w, h, err);
+    if (format == Format::kUnknown) *err = "neither a JPEG nor a PNG file";
+    if (ok || format == Format::kUnknown || d.size() < want) break;  // or the file ended
   }
   fclose(fp);
   return ok;
 }
 
-// Header-only dimension probe: no pixel decode.
 bool probe_size(const char* path, int* w, int* h) {
-  FILE* fp = fopen(path, "rb");
-  if (!fp) return false;
-  bool ok = false;
-  Format fmt = sniff_format(fp);
-  if (fmt == Format::kJpeg) {
-    jpeg_decompress_struct cinfo;
-    JpegErr jerr;
-    cinfo.err = jpeg_std_error(&jerr.pub);
-    jerr.pub.error_exit = jpeg_err_exit;
-    if (!setjmp(jerr.jump)) {
-      jpeg_create_decompress(&cinfo);
-      jpeg_stdio_src(&cinfo, fp);
-      jpeg_read_header(&cinfo, TRUE);
-      *w = cinfo.image_width;
-      *h = cinfo.image_height;
-      ok = true;
-    }
-    jpeg_destroy_decompress(&cinfo);
-  } else if (fmt == Format::kPng) {
-    png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr,
-                                             nullptr, nullptr);
-    png_infop info = png ? png_create_info_struct(png) : nullptr;
-    if (png && info && !setjmp(png_jmpbuf(png))) {
-      png_init_io(png, fp);
-      png_read_info(png, info);
-      *w = png_get_image_width(png, info);
-      *h = png_get_image_height(png, info);
-      ok = true;
-    }
-    if (png) png_destroy_read_struct(&png, info ? &info : nullptr, nullptr);
-  }
-  fclose(fp);
-  return ok;
+  std::string err;
+  return probe_size(path, w, h, &err);
 }
+
+void copy_reason(const std::string& why, char* msg, int cap) {
+  if (cap <= 0) return;
+  size_t n = std::min(why.size(), size_t(cap - 1));
+  std::memcpy(msg, why.data(), n);
+  msg[n] = 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Why `path` does not decode (or, with size_only, why its size cannot be
+// read): 0 and an empty `msg` when it does.
+int fsd_decode_error(const char* path, int size_only, char* msg, int cap) {
+  std::string err;
+  bool ok;
+  if (size_only) {
+    int w, h;
+    ok = probe_size(path, &w, &h, &err);
+  } else {
+    ImageU8 img;
+    ok = decode_file(path, &img, &err);
+  }
+  copy_reason(ok ? std::string() : err, msg, cap);
+  return ok ? 0 : -1;
+}
+
+}  // extern "C"
+
+namespace {
 
 // ----------------------------------------------------------- crop / flip
 

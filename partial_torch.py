@@ -11,18 +11,7 @@ needed.
 
 import sys
 
-
-def partial(cfgfile, weightfile, outfile, cutoff):
-    from fewshot_detection_tpu_torch.config import parse_cfg
-    from fewshot_detection_tpu_torch.models import weights_io
-    from fewshot_detection_tpu_torch.models.darknet import init_params
-    from fewshot_detection_tpu_torch.models.spec import build_spec
-
-    spec = build_spec(parse_cfg(cfgfile))
-    params = init_params(spec, 0)
-    (params,), _ = weights_io.load_weights(weightfile, [spec], [params])
-    weights_io.save_weights(outfile, [spec], [params], seen=0, cutoff=cutoff)
-    print(f"save {outfile}")
+from fewshot_detection_tpu_torch.cli.partial import partial
 
 
 if __name__ == "__main__":

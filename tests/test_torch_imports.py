@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package
-nor PIL, and holds no quiet way around its kernel."""
+nor the tests' helpers nor PIL, and holds no quiet way around its kernel."""
 
 import os
 import re
@@ -15,7 +15,8 @@ PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 
 ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.py",
                 "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
-                "train_torch.py", "partial_torch.py")
+                "train_torch.py", "partial_torch.py", "scripts/full_workflow_torch.py")
+TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref", "tests")
 
 
 def _port_sources():
@@ -37,10 +38,12 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "          'cli.train_meta_cli', 'data.augment', 'data.loader', 'utils.logging',\n"
         "          'eval.harness', 'cli.train_plain_cli', 'native', 'native.loader',\n"
         "          'data.mploader', 'data.prep', 'data.coco_prep', 'train.checkpoint',\n"
-        "          'utils.profiling', 'utils.trace_summary'):\n"
+        "          'utils.profiling', 'utils.trace_summary', 'data.synth', 'cli.workflow',\n"
+        "          'cli.partial', 'data.png'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"
+        f"       or k.split('.')[0] in {TEST_HELPERS!r}\n"
         "       or k == 'fewshot_detection_tpu' or k.startswith('fewshot_detection_tpu.')]\n"
         "assert not bad, bad\n"
         "assert not sys.modules[p.__name__ + '.native.loader']._loaded  # built at first use only\n"
@@ -62,6 +65,7 @@ def test_root_scripts_import_no_jax_no_pil_no_jax_package():
         f"for n in {ROOT_SCRIPTS!r}:\n"
         "    runpy.run_path(n, run_name='not_main')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')\n"
+        f"       or k.split('.')[0] in {TEST_HELPERS!r}\n"
         "       or k == 'fewshot_detection_tpu' or k.startswith('fewshot_detection_tpu.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -92,6 +96,8 @@ FORBIDDEN = {
     "import of the JAX package": re.compile(
         r"^\s*(import|from)\s+fewshot_detection_tpu(\.|\s)", re.M),
     "top-level import of PIL": re.compile(r"^(import|from)\s+PIL\b", re.M),
+    "import of the tests' helpers": re.compile(
+        r"^\s*(import|from)\s+(" + "|".join(TEST_HELPERS) + r")\b", re.M),
     "fallback on is_available()": re.compile(r"is_available\(\)\s+else"),
     "bare except": re.compile(r"^\s*except\s*:", re.M),
     "torchvision": re.compile(r"^\s*(import|from)\s+torchvision\b", re.M),
@@ -200,3 +206,26 @@ def test_plain_family_entry_points_default_to_cuda_and_raise_without_one():
         PlainTrainer(PlainDetector(plain, device="cpu").spec)
     with pytest.raises(RuntimeError):
         train_plain_cli.main("no.data", plain, "no.weights")  # refused before any file is read
+
+
+def test_workflow_defaults_to_cuda_and_raises_without_one(tmp_path, monkeypatch):
+    import inspect
+
+    import torch
+
+    from fewshot_detection_tpu_torch.cli import workflow
+
+    for name, value in workflow.DEFAULTS.items():  # main() sets them; put back after
+        monkeypatch.setattr(workflow, name, value)
+
+    assert workflow.parse_args([]).device == "cuda"
+    assert workflow.DEVICE == "cuda"
+    assert set(inspect.signature(workflow.main).parameters) == {"argv"}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot be shown")
+    root = str(tmp_path / "wf")
+    with pytest.raises(RuntimeError):
+        workflow.main(["--tiny", "--root", root, "--n-train", "20", "--n-test", "4",
+                       "--base-batches", "1"])  # the data stage runs, base refuses
+    assert os.path.exists(workflow.done_marker(root, "data"))
+    assert not os.path.exists(workflow.done_marker(root, "base"))

@@ -1,8 +1,9 @@
 """The port's native image pipeline (`native/`) against the JAX package's.
 
-Both packages compile their own copy of one C++ source with the same
-compiler and flags, so every method must give BIT-EQUAL arrays (no
-tolerance) on PNG and JPEG files. A library that cannot be built raises in
+Both packages compile the same crop/resize/HSV/assembler code with the
+same compiler and flags, and the port's own PNG and JPEG decoders give
+libpng's and libjpeg's pixels, so every method must give BIT-EQUAL arrays
+(no tolerance) on PNG and JPEG files. A library that cannot be built raises in
 the port, where the JAX package falls back to PIL. `get_image_size` reads
 the header natively under FSD_NATIVE=1 and gives PIL's (width, height)."""
 
@@ -145,15 +146,16 @@ def test_library_lands_in_build_dir_named_by_hash():
     # the JAX package's flags, so both libraries give the same bytes
     cmd = t_loader.build_command("out.so")
     assert cmd[:6] == ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
-    assert cmd[-2:] == ["-ljpeg", "-lpng"]
+    # the port's own decoders: zlib, and no system image library
+    assert cmd[-1:] == ["-lz"] and "-ljpeg" not in cmd and "-lpng" not in cmd
     with open(t_loader.SOURCE) as f:
         src = f.read()
     from fewshot_detection_tpu.native import loader as j_loader
 
     with open(j_loader._SRC) as f:
         jsrc = f.read()
-    # the same code: only the leading comment differs
-    body = lambda s: s[s.index("#include <algorithm>"):]
+    # the same code after the decoders: crop, resize, HSV and the assembler
+    body = lambda s: s[s.index("// ----------------------------------------------------------- crop"):]
     assert body(src) == body(jsrc)
 
 
