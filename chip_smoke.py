@@ -63,6 +63,28 @@ phases, each printing JSON lines:
            train_plain_cli derives lr and weight decay, from the same seeded
            weights on images painted from the seed: as `train`, with 22 + 22
            `bn_sums` launches a step; then `bn_sums_step` for its 22 layers
+  int8_serve  int8 serving (FSD_INT8=1, models/quant.py; the int8 products
+           are torch._int_mm through ops/int8_mm.py) at full width on the
+           tracked checkpoint over 32 images of the workflow's synthetic
+           style (data/synth.py) written as PNG files: run_valid_ensemble in
+           float32 with the int8 head and with FSD_INT8_HEAD=0 (result
+           files, NMS and int8 launches per batch); then in float32 and
+           bfloat16, in memory, class codes over every support image,
+           valid.quantize_sweep (calibration seconds), detect_ms int8 against
+           float, the first batch's head output against the float one (its
+           deviation and confident boxes reported: on the trained checkpoint
+           the scheme deviates far more than the JAX tests' bounds, in the
+           JAX package too), and the sweep at 20 and 15 classes (the head's N = 450 padded to
+           456), images/s; the card's int8 codes (every quantized input, the
+           head's effective weight) equal to the CPU's for the same float
+           tensor; PlainDetector.quantize_int8 on cfg/yolo-voc.cfg from the
+           seeded weights; the JAX package's int8 closeness tests
+           (tests/test_quant.py) on the card with their recipe and bounds
+           (64 px, seeded weights: plain 0.05, meta 0.06, learnet and head
+           0.08). Every int8 product (M, K, N) launched is
+           recorded and held again on the card against the plain int64
+           product on the CPU: the int32 results equal; card ms, TOP/s and
+           bound per shape
   native   the host toolchain (`g++ --version`, zlib's header and library;
            nothing decides from it) and the port's native image library
            built with g++ from its sources (its own PNG decoder on zlib and
@@ -105,8 +127,8 @@ phases, each printing JSON lines:
            says (listed as `reduced`); each stage's seconds, steps, first and
            last loss and bn_sums / nms_rows launches, and the two mAPs (numbers
            for synthetic data, not a quality claim)
-  path_inputs  every path above (serve, plain_serve, train, plain_train,
-           ckpt, files, workflow) runs with its kernel inputs recorded
+  path_inputs  every path above (serve, plain_serve, int8_serve, train,
+           plain_train, ckpt, files, workflow) runs with its kernel inputs recorded
            (`PathInputs`, no launch of its own); afterwards each kernel is
            held against its plain version there, as in `kernels`: bn_sums at
            every distinct (M, C, dtype) a path launched, the workflow's
@@ -151,6 +173,8 @@ from fewshot_detection_tpu_torch.cli.train_plain_cli import (
 from fewshot_detection_tpu_torch.config import parse_cfg
 from fewshot_detection_tpu_torch.config.settings import VOC_CLASSES
 from fewshot_detection_tpu_torch.data import png, prep
+from fewshot_detection_tpu_torch.data.datasets import DetectionDataset, MetaDataset
+from fewshot_detection_tpu_torch.data.synth import make_voc_like
 from fewshot_detection_tpu_torch.data.augment import sample_augment_params
 from fewshot_detection_tpu_torch.eval import device_pipeline, valid
 from fewshot_detection_tpu_torch.eval.detector import MetaDetector, PlainDetector
@@ -160,7 +184,8 @@ from fewshot_detection_tpu_torch.eval.device_pipeline import (
     _rows_to_eval_boxes,
 )
 from fewshot_detection_tpu_torch.models.convert import from_jax_params, require_grads
-from fewshot_detection_tpu_torch.models.darknet import init_params
+from fewshot_detection_tpu_torch.models import meta as meta_mod, quant
+from fewshot_detection_tpu_torch.models.darknet import apply_network, folded_spec, init_params
 from fewshot_detection_tpu_torch.models.meta import MetaSpec, init_meta_params
 from fewshot_detection_tpu_torch.models.spec import build_spec
 from fewshot_detection_tpu_torch.eval.voc_eval import do_python_eval
@@ -180,7 +205,9 @@ from fewshot_detection_tpu_torch.ops.bn_sums import (
     bn_sums_backward_reference,
     bn_sums_reference,
 )
-from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes, nms
+from fewshot_detection_tpu_torch.ops import int8_mm
+from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes, get_region_boxes_v2, nms
+from fewshot_detection_tpu_torch.ops.int8_mm import int8_matmul, int8_matmul_reference
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
 from fewshot_detection_tpu_torch.train import MetaTrainer, PlainTrainer, init_momentum
 from fewshot_detection_tpu_torch.train.checkpoint import (
@@ -191,7 +218,7 @@ from fewshot_detection_tpu_torch.train.checkpoint import (
 )
 from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path, tree_map
 from fewshot_detection_tpu_torch.utils import format_loss_line
-from fewshot_detection_tpu_torch.utils.profiling import trace
+from fewshot_detection_tpu_torch.utils.profiling import WARMUP_KERNEL, trace, warm_up_cuda_trace
 from fewshot_detection_tpu_torch.utils.trace_summary import find_trace_files, load_events, summarize
 
 import detect_torch
@@ -625,17 +652,21 @@ TRACE_ATTEMPTS = 3
 def kernels_of_one_call(fn) -> tuple[list, int]:
     """Names of the kernels, copies and memsets that one fn() puts on the
     card, as the profiler's device trace lists them, and the number of
-    traces it took to get a trace with a device event in it."""
+    traces it took to get a trace with a device event of fn() in it. A
+    trace can miss its first device events, the only kernel of one short
+    call among them (utils/profiling.py), so `warm_up_cuda_trace` runs first
+    in each, and its spin kernels are left out of the names."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warm_up_cuda_trace()
             fn()
             torch.cuda.synchronize()
         names = [ev.key for ev in prof.key_averages() if ev.device_type.name == "CUDA"
-                 for _ in range(ev.count)]
+                 and WARMUP_KERNEL not in ev.key for _ in range(ev.count)]
         if names:
             break
     return names, attempt
@@ -1309,6 +1340,446 @@ def phase_plain_serve(seed: int, n_batches: int, outdir: str) -> dict:
     return {"rows": captured, "launches": main_launches}
 
 
+# ---------------------------------------------------------------------------
+# int8_serve: FSD_INT8 serving at full width
+# ---------------------------------------------------------------------------
+
+# the workflow's synthetic images (data/synth.py, the style and sizes the
+# tracked checkpoint was trained on), two sweep batches
+INT8_IMAGES = 2 * BATCH
+INT8_IMG_SIZE = (256, 256)
+# the JAX package's bounds on int8 against float (tests/test_quant.py), held
+# where its tests hold them (seeded weights at 64 px, `int8_jax_test_cases`):
+# the head output's largest deviation over its largest value (plain 0.05,
+# meta 0.06, with the learnet and the head 0.08), and confident boxes (conf
+# 0.5 on objectness, NMS 0.4) within max(2, n // 5) of the float count. On
+# the tracked checkpoint the scheme itself deviates far more, in the JAX
+# package too (tests/test_torch_int8_eval.py holds the two alike there):
+# there the deviation and the confident boxes are reported, not bounded
+INT8_PLAIN_REL = 0.05
+INT8_META_REL = 0.06
+INT8_LEARNET_HEAD_REL = 0.08
+CONFIDENT = 0.5
+TINY_PLAIN_CFG = os.path.join(REPO, "cfg", "tiny-yolo-voc.cfg")
+# published int8 dense rate of one H100 SXM (tensor cores)
+PEAK_INT8_OPS = 1979e12
+
+
+class Int8Products:
+    """Every int8 product the paths launch, by standing in for
+    `ops/int8_mm.padded_int_mm` (`int8_matmul`'s one call of torch._int_mm),
+    which adds no launch of its own: how often each distinct (M, K, N) ran,
+    and a copy of the operands of its first call."""
+
+    def __init__(self):
+        self.counts, self.operands = {}, {}
+        self._fn = int8_mm.padded_int_mm
+
+    def _record(self, a, w):
+        key = (a.shape[0], a.shape[1], w.shape[0])
+        self.counts[key] = self.counts.get(key, 0) + 1
+        if key not in self.operands:
+            self.operands[key] = (a.clone(), w.clone())
+        return self._fn(a, w)
+
+    def __enter__(self):
+        int8_mm.padded_int_mm = self._record
+        return self
+
+    def __exit__(self, *exc):
+        int8_mm.padded_int_mm = self._fn
+
+
+class Int8Clock:
+    """Times every int8 product of a stretch of work with CUDA events, by
+    standing in for `ops/int8_mm.padded_int_mm` (over whatever stands
+    there): their summed card time, operations and bound."""
+
+    def __init__(self):
+        self.events, self.shapes = [], []
+        self._fn = int8_mm.padded_int_mm
+
+    def _timed(self, a, w):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._fn(a, w)
+        stop.record()
+        self.events.append((start, stop))
+        self.shapes.append((a.shape[0], a.shape[1], w.shape[0]))
+        return out
+
+    def __enter__(self):
+        int8_mm.padded_int_mm = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        int8_mm.padded_int_mm = self._fn
+
+    def report(self) -> dict:
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        ops = sum(2 * m * k * n for m, k, n in self.shapes)
+        return {"products": len(self.shapes), "products_ms": ms,
+                "products_bound_ms": sum(int8_bound_ms(*s)["bound_ms"] for s in self.shapes),
+                "products_gop": ops / 1e9, "products_tops": ops / ms / 1e9 if ms else None}
+
+
+def int8_bound_ms(m: int, k: int, n: int) -> dict:
+    """The least time of an (M, K, N) int8 product with int32 results on the
+    card: each operand read once, the result written once, against 2*M*K*N
+    operations at the int8 tensor-core rate."""
+    bytes_ms = (m * k + n * k + 4 * m * n) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms > ops_ms else
+            "operations"}
+
+
+def hold_int8_products(rec: Int8Products) -> dict:
+    """Each distinct recorded product again on the card (torch._int_mm,
+    padded as the path pads it) against the plain int64 product on the
+    CPU: the int32 results must be equal. Times on the card by CUDA events."""
+    cases, t_cpu = [], 0.0
+    for (m, k, n), (a, w) in sorted(rec.operands.items(), key=lambda kv: -np.prod(kv[0])):
+        card = rec._fn(a, w)
+        t0 = time.perf_counter()
+        want = int8_matmul_reference(a.cpu(), w.cpu())
+        t_cpu += time.perf_counter() - t0
+        differ = int((card.cpu() != want).sum())
+        check(differ == 0, f"int8 product ({m}, {k}, {n}): {differ} int32 results differ from "
+              "the plain product")
+        ms = cuda_ms(lambda a=a, w=w: rec._fn(a, w), 10)
+        cases.append({"m": m, "k": k, "n": n, "calls": rec.counts[(m, k, n)], "differ": differ,
+                      "ms": ms, "tops": 2 * m * k * n / ms / 1e9, **int8_bound_ms(m, k, n)})
+    return {"cases": cases, "cpu_seconds": t_cpu}
+
+
+def int8_layers(fspec) -> int:
+    return sum(quant._is_quantizable(fspec, l) for l in fspec.layers)
+
+
+def codes_on_card_and_cpu(x: torch.Tensor, sx: float) -> tuple[int, int]:
+    """(codes, codes that differ) of quantize_act on the card and on the CPU
+    for the same float input."""
+    inv = quant.act_scale_inverse(sx)
+    card = quant.quantize_act(x, torch.tensor(inv, dtype=torch.float32, device=x.device))
+    cpu = quant.quantize_act(x.cpu(), torch.tensor(inv, dtype=torch.float32))
+    return card.numel(), int((card.cpu() != cpu).sum())
+
+
+def meta_codes_check(m, images, dev_codes) -> dict:
+    """The int8 detect path once more, with an observe hook that holds every
+    quantized input's codes (and the fused head's effective-weight codes and
+    scales) on the card against the CPU's for the same float tensor."""
+    total = {"codes": 0, "differ": 0, "head_weight_codes": 0, "head_weight_differ": 0}
+    layers = m.qspec.darknet.layers
+    dyn = next(l for l in layers if l.kind == "conv" and l.dynamic)
+    head_w = m.qparams[layers[dyn.index + 1].index]["w"]
+    dw = dev_codes[0].to(m.compute_dtype)
+
+    def observe(idx, x):
+        if idx not in m.act_scales:
+            return
+        n, d = codes_on_card_and_cpu(x, m.act_scales[idx])
+        total["codes"] += n
+        total["differ"] += d
+        if idx == dyn.index:
+            card = meta_mod.head_int8_operands(x, dw, head_w, m.act_scales[idx])
+            cpu = meta_mod.head_int8_operands(x.cpu(), dw.cpu(), head_w.cpu(), m.act_scales[idx])
+            total["head_weight_codes"] += card[1].numel()
+            total["head_weight_differ"] += int((card[1].cpu() != cpu[1]).sum())
+            check(torch.equal(card[2].cpu(), cpu[2]), "the head's scales differ card against CPU")
+
+    with torch.no_grad():
+        meta_mod.detect_forward(
+            m.qspec, {"darknet": m.qparams, "learnet": None},
+            torch.as_tensor(images, device=m.device).to(m.compute_dtype),
+            [d.to(m.compute_dtype) for d in dev_codes], fuse=True, act_scales=m.act_scales,
+            observe=observe)
+    check(total["differ"] == 0 and total["head_weight_differ"] == 0,
+          f"int8 codes differ between the card and the CPU: {total}")
+    return total
+
+
+def confident_boxes(output: torch.Tensor, n_cls: int | None, region) -> int:
+    """Boxes over CONFIDENT on objectness after NMS 0.4, as the JAX tests
+    count them; `n_cls` None for the plain head."""
+    if n_cls is None:
+        rows = get_region_boxes(output, CONFIDENT, region.num_classes, region.anchor_wh)
+    else:
+        rows = get_region_boxes_v2(output, n_cls, CONFIDENT, region.num_classes,
+                                   region.anchor_wh)
+    return sum(len(nms(b, 0.4)) for b in rows)
+
+
+def boxes_close(n_fp: int, n_q: int) -> bool:
+    return n_fp > 0 and abs(n_fp - n_q) <= max(2, n_fp // 5)
+
+
+def max_rel_dev(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def seeded_weights(path: str, specs: list, seed: int) -> str:
+    """The JAX tests' weights: the init of `seed` with every conv weight
+    x 2.45, BN at its init, written as a .weights file."""
+    rng = np.random.default_rng(seed)
+    trees = []
+    for spec in specs:
+        trees.append([dict(p, w=p["w"] * np.float32(2.45)) if p and "w" in p else p
+                      for p in init_params(spec, rng)])
+    save_weights(path, specs, trees)
+    return path
+
+
+def int8_jax_test_cases() -> list:
+    """The JAX package's int8 closeness tests (tests/test_quant.py) on the
+    card in float32, with their recipe and bounds: seeded weights, inputs
+    drawn from np.random.RandomState as the tests draw them, 64 px; the
+    plain tiny-yolo-voc (0.05 and the confident boxes), the meta detector's
+    backbone (0.06), and with the learnet and the head (codes and head 0.08)."""
+    out = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_tests_") as tmp:
+        spec = build_spec(parse_cfg(TINY_PLAIN_CFG))
+        m = PlainDetector(TINY_PLAIN_CFG, seeded_weights(os.path.join(tmp, "t.weights"), [spec], 0),
+                          device=DEVICE)
+        rng = np.random.RandomState(1)
+        calib = rng.rand(8, 64, 64, 3).astype(np.float32)
+        x = rng.rand(2, 64, 64, 3).astype(np.float32)
+        y_fp = m(x)
+        m.quantize_int8(calib)
+        y_q = m(x)
+        n_fp, n_q = (confident_boxes(y, None, m.region) for y in (y_fp, y_q))
+        out.append({"case": "plain tiny-yolo-voc", "max_rel_dev": max_rel_dev(y_q, y_fp),
+                    "bound": INT8_PLAIN_REL, "confident_boxes_float": n_fp,
+                    "confident_boxes_int8": n_q, "boxes_close": boxes_close(n_fp, n_q)})
+        specs = [build_spec(parse_cfg(c)) for c in (DARKNET_CFG, LEARNET_CFG)]
+        for case, seed, rs, kw, bound in (
+                ("meta backbone", 7, 0, {}, INT8_META_REL),
+                ("meta learnet and head", 3, 1, {"quant_head": True}, INT8_LEARNET_HEAD_REL)):
+            wpath = seeded_weights(os.path.join(tmp, f"m{seed}.weights"), specs, seed)
+            m = MetaDetector(DARKNET_CFG, LEARNET_CFG, wpath, device=DEVICE)
+            rng = np.random.RandomState(rs)
+            metax = rng.rand(4, 64, 64, 3).astype(np.float32)
+            mask = (rng.rand(4, 64, 64, 1) > 0.5).astype(np.float32)
+            codes = m.class_codes(metax, mask)
+            x = rng.rand(2, 64, 64, 3).astype(np.float32)
+            y_fp = m.detect(x, codes)
+            if kw:
+                kw = dict(kw, calib_support=(metax, mask))
+            m.quantize_int8(x, codes, **kw)
+            got = {"case": case, "max_rel_dev": max_rel_dev(m.detect(x, codes), y_fp),
+                   "bound": bound}
+            if kw:
+                got["codes_max_rel_dev"] = max(
+                    float(np.abs(q - f).max() / (np.abs(f).max() + 1e-9))
+                    for q, f in zip(m.class_codes(metax, mask), codes))
+            out.append(got)
+    emit("int8_serve", jax_test_cases=out)
+    for c in out:
+        check(c["max_rel_dev"] < c["bound"] and c.get("codes_max_rel_dev", 0) < c["bound"]
+              and c.get("boxes_close", True),
+              f"int8 against float outside the JAX tests' bound: {c}")
+    return out
+
+
+def int8_sweep_files(data_options, settings, root: str, head: bool, n_quant: int) -> dict:
+    """run_valid_ensemble under FSD_INT8=1 (FSD_INT8_HEAD as `head`) in
+    float32 over the painted list, as valid_ensemble_torch.py runs it, with
+    both launch counts set to 0 just before and read just after."""
+    env = {"FSD_INT8": "1", "FSD_INT8_HEAD": "1" if head else "0", "FSD_NATIVE": "1",
+           "FSD_EVAL_BATCH": str(BATCH), "FSD_DEVICE_NMS_K": str(PLAIN_TOP_K)}
+    torch.cuda.synchronize()
+    nms_rows.launches = int8_matmul.launches = 0  # read right after the sweep
+    t0 = time.perf_counter()
+    printed = run_cli(lambda: valid.run_valid_ensemble(
+        data_options, DARKNET_CFG, LEARNET_CFG, WEIGHTS, settings, device=DEVICE), env)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"nms_rows": nms_rows.launches, "int8_products": int8_matmul.launches}
+    check("===> int8 serving calibrated for the sweep" in printed, "the sweep did not quantize")
+    prefix = printed.split("saving to: ", 1)[1].split()[0]
+    rows = 0
+    for name in VOC_CLASSES:
+        with open(os.path.join(root, prefix, f"comp4_det_test_{name}.txt")) as f:
+            lines = f.read().splitlines()
+        check(all(len(r.split()) == 6 and np.isfinite([float(v) for v in r.split()[1:]]).all()
+                  for r in lines), f"malformed result row for {name}")
+        rows += len(lines)
+    batches = INT8_IMAGES // BATCH
+    check(rows > 0, "the int8 sweep wrote no result row")
+    check(launches["nms_rows"] == batches, f"{launches} for {batches} batches")
+    check(launches["int8_products"] == batches * (n_quant + head),
+          f"{launches['int8_products']} int8 products for {batches} batches of "
+          f"{n_quant + head} quantized layers")
+    return {"head_int8": head, "seconds": seconds, "images_per_s": INT8_IMAGES / seconds,
+            "result_rows": rows, "launches": launches}
+
+
+def phase_int8_serve(seed: int, n_batches: int, outdir: str) -> dict:
+    """FSD_INT8 serving of the ensemble sweep at full width on the tracked
+    checkpoint, over images of the workflow's synthetic style: through
+    run_valid_ensemble in float32 (TF32 off) with the int8 head and with
+    FSD_INT8_HEAD=0; then in float32 and bfloat16 the same steps in memory
+    (class codes over every support image, valid.quantize_sweep, the sweep)
+    at 20 and 15 classes (the head's N = 450 padded to 456), each against
+    the same detector's non-int8 output on the first batch; then
+    PlainDetector.quantize_int8 on cfg/yolo-voc.cfg from seeded weights;
+    then the JAX package's int8 closeness tests with their bounds
+    (`int8_jax_test_cases`). Every int8 product launched is recorded and held on the card against
+    the plain CPU product; the card's int8 codes against the CPU's. Returns
+    the NMS launches and the held products."""
+    root = os.path.join(outdir, "int8")
+    os.makedirs(root)
+    cwd = os.getcwd()
+    main_launches, reports = 0, {"runs": [], "sweeps": [], "plain": []}
+    with Int8Products() as rec:
+        try:
+            os.chdir(root)
+            d = make_voc_like(os.path.join(root, "voc"), n_images=INT8_IMAGES, size=INT8_IMG_SIZE,
+                              seed=seed, style="huebin", box_range=(0.15, 0.45))
+            datacfg = os.path.join(root, "int8.data")
+            with open(datacfg, "w") as f:
+                f.write("metayolo=1\nmetain_type=2\ndata=voc\nneg=1\nrand=0\n"
+                        f"novel={REPO}/data/voc_novels.txt\nnovelid=0\n"
+                        f"meta={d['traindict']}\ntrain={d['train_list']}\n"
+                        f"valid={d['train_list']}\nbackup={root}/backup\ngpus=0\n")
+            data_options, darknet, _, settings = resolve_configs(datacfg, DARKNET_CFG, LEARNET_CFG)
+            dspec = build_spec(darknet)
+            n_quant = int8_layers(folded_spec(dspec))
+            for head in (True, False):
+                run = int8_sweep_files(data_options, settings, root, head, n_quant)
+                main_launches += run["launches"]["nms_rows"]
+                reports["runs"].append(run)
+
+            old = {k: os.environ.get(k) for k in ("FSD_NATIVE", "FSD_INT8", "FSD_DEVICE_NMS_K")}
+            os.environ.update(FSD_NATIVE="1", FSD_INT8="1", FSD_DEVICE_NMS_K=str(PLAIN_TOP_K))
+            try:
+                images = np.concatenate([b for b, _ in DetectionDataset(
+                    data_options["valid"], settings, shape=(dspec.width, dspec.height),
+                    shuffle=False, train=False, filter_valid=False).batches(BATCH, drop_last=False)])
+                support = MetaDataset(data_options["meta"], settings, train=False,
+                                      ensemble=True, with_ids=True)
+                detset = MemoryDetectionSet(images)
+                for dtype in (torch.float32, torch.bfloat16):
+                    got = int8_meta_sweeps(dtype, images, detset, support, outdir, n_quant)
+                    main_launches += sum(s["sweep"]["nms_launches"] for s in got["by_classes"])
+                    reports["sweeps"].append(got)
+                    emit("int8_serve", **got)
+            finally:
+                for k, v in old.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            reports["plain"] = int8_plain(seed)
+            reports["jax_test_cases"] = int8_jax_test_cases()
+        finally:
+            os.chdir(cwd)
+    held = hold_int8_products(rec)
+    emit("int8_products", distinct=len(held["cases"]), cpu_seconds=held["cpu_seconds"],
+         case_fields=list(held["cases"][0]), cases=[list(c.values()) for c in held["cases"]])
+    emit("int8_serve", runs=reports["runs"], plain=reports["plain"],
+         products_equal=all(c["differ"] == 0 for c in held["cases"]),
+         products_held=len(held["cases"]), nms_launches=main_launches)
+    return {"launches": main_launches, "products": held}
+
+
+def int8_meta_sweeps(dtype, images, detset, support, outdir: str, n_quant: int) -> dict:
+    """One compute dtype of `phase_int8_serve`'s in-memory part."""
+    name = str(dtype).split(".")[-1]
+    m = MetaDetector(DARKNET_CFG, LEARNET_CFG, WEIGHTS, metain_type=2, compute_dtype=dtype,
+                     device=DEVICE)
+    codes, _ = valid.ensemble_class_codes(m, support)
+    first = images[:BATCH]
+    dev = {n: m.commit_codes([c[:n] for c in codes]) for n in (20, 15)}
+    float_out = {n: m.detect(first, dev[n]) for n in dev}
+    float_ms = cuda_ms(lambda: m.detect(first, dev[20]), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(valid.quantize_sweep(m, detset, codes, BATCH), "FSD_INT8=1 did not quantize")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    int8_ms = cuda_ms(lambda: m.detect(first, dev[20]), 5)
+    with Int8Clock() as clock:  # the products of one int8 detect of the first batch
+        m.detect(first, dev[20])
+    report = {"dtype": name, "calibration_seconds": calib_s, "detect_ms_float": float_ms,
+              "detect_ms_int8": int8_ms, "one_detect": clock.report(), "batch": BATCH,
+              "quantized_layers": n_quant + 1,
+              "codes": meta_codes_check(m, first, dev[20]), "by_classes": []}
+    accuracy = []
+    for n_cls in (20, 15):
+        out, ref = m.detect(first, dev[n_cls]), float_out[n_cls]
+        accuracy.append({"n_cls": n_cls, "max_rel_dev": max_rel_dev(out, ref),
+                         "mean_rel_dev": float((out - ref).abs().mean() / ref.abs().mean()),
+                         "confident_boxes_float": confident_boxes(ref, n_cls, m.region),
+                         "confident_boxes_int8": confident_boxes(out, n_cls, m.region)})
+    for n_cls, acc in zip((20, 15), accuracy):
+        classes = VOC_CLASSES[:n_cls]
+        run = (lambda prefix, stats, codes=dev[n_cls], n_cls=n_cls, classes=classes:
+               valid._meta_sweep(m, detset, prefix, "comp4_det_test_", lambda: codes,
+                                 n_cls, classes, BATCH, stats=stats))
+        int8_matmul.launches = 0  # read right after the sweep, with nms_rows's
+        swept = sweep(run, len(detset.lines), classes, outdir, f"int8_{name}_{n_cls}", PLAIN_TOP_K)
+        products = int8_matmul.launches
+        check(products == swept["batches"] * (n_quant + 1),
+              f"{products} int8 products for {swept['batches']} batches")
+        swept["int8_products"] = products
+        report["by_classes"].append({**acc, "sweep": swept})
+    return report
+
+
+def int8_plain(seed: int) -> list:
+    """PlainDetector.quantize_int8 on cfg/yolo-voc.cfg at 416 px from the
+    plain_serve phase's seeded weights, calibrated on 16 painted images, in
+    float32 and bfloat16: the int8 head output's deviation from the float one
+    (reported), the codes on the card against the CPU's, the int8 products
+    of a forward."""
+    spec = build_spec(parse_cfg(PLAIN_CFG))
+    rng = np.random.default_rng(seed + 7)
+    calib, _ = paint_images(rng, BATCH, 416)
+    images, _ = paint_images(rng, BATCH, 416)
+    out = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_plain_") as tmp:
+        wpath = os.path.join(tmp, "yolo-voc.weights")
+        save_weights(wpath, [spec], [plain_params(spec, seed)], seen=PLAIN_SEEN)
+        for dtype in (torch.float32, torch.bfloat16):
+            m = PlainDetector(PLAIN_CFG, wpath, compute_dtype=dtype, device=DEVICE)
+            y_fp = m(images)
+            float_ms = cuda_ms(lambda: m(images), 5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.quantize_int8(calib)
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            int8_matmul.launches = 0  # one forward's products, read right after
+            y_q = m(images)
+            torch.cuda.synchronize()
+            products = int8_matmul.launches
+            n_quant = int8_layers(m.fspec)
+            check(products == n_quant, f"plain int8 forward: {products} products, {n_quant} layers")
+            rel = max_rel_dev(y_q, y_fp)
+            check(bool(torch.isfinite(y_q).all()), "plain int8 output is not finite")
+            codes = {"codes": 0, "differ": 0}
+
+            def observe(idx, x, m=m, codes=codes):
+                if idx in m.act_scales:
+                    n, d = codes_on_card_and_cpu(x, m.act_scales[idx])
+                    codes["codes"] += n
+                    codes["differ"] += d
+
+            with torch.no_grad():
+                apply_network(m.fspec, m.qparams, torch.as_tensor(images, device=m.device)
+                              .to(dtype), act_scales=m.act_scales, observe=observe)
+            check(codes["differ"] == 0, f"plain int8 codes differ card against CPU: {codes}")
+            out.append({"dtype": str(dtype).split(".")[-1], "calibration_seconds": calib_s,
+                        "detect_ms_float": float_ms,
+                        "detect_ms_int8": cuda_ms(lambda: m(images), 5),
+                        "batch": BATCH, "quantized_layers": n_quant, "int8_products": products,
+                        "max_rel_dev": rel, "codes": codes})
+    return out
+
+
 def make_plain_episode(seed: int, batch_size: int, dtype_name: str) -> dict:
     """One batch for PlainTrainer painted from the seed through the CLI's own
     batch maker: noisy backgrounds (see make_episode), the first rectangle of
@@ -1719,18 +2190,23 @@ def phase_ckpt(seed: int, smi: str) -> dict:
             assert_state_equal(got, p_cpu, m_cpu, counters, os.path.basename(path))
             del got, fresh
         report["restored_bit_equal"] = 2
-        # a torch.profiler trace of 3 steps, taken again if it lost every
-        # device event (see TRACE_ATTEMPTS)
+        # a torch.profiler trace of 3 steps (utils/profiling.trace opens it
+        # with spin kernels), taken again if it lost every device event (see
+        # TRACE_ATTEMPTS)
         for attempt in range(1, TRACE_ATTEMPTS + 1):
             with trace(os.path.join(d, f"trace{attempt}"), device=DEVICE) as trace_path:
                 for i in range(3):
                     step(i)
                 torch.cuda.synchronize()
-            summary = summarize(load_events(trace_path))
+            events = load_events(trace_path)
+            summary = summarize(events)
             if "no GPU events" not in summary["device"]:
                 break
         fwd, bwd = bn_launch_counts(summary)
+        device_events = sorted((e["ts"], e["name"]) for e in events
+                               if e.get("ph") == "X" and e.get("cat") == "kernel")
         report.update(trace_device=summary["device"], traces_taken=attempt,
+                      trace_first_kernels=[n[:60] for _, n in device_events[:2]],
                       trace_total_ms=summary["total_us"] / 1e3,
                       trace_bn_fwd=fwd, trace_bn_bwd=bwd,
                       trace_top=sorted(summary["categories"].items(), key=lambda kv: -kv[1])[:6])
@@ -2103,7 +2579,7 @@ def bn_kernel_entries(bn: dict, trained: dict) -> list:
 
 
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
-          "native", "ckpt", "files", "workflow")
+          "int8_serve", "native", "ckpt", "files", "workflow")
 
 
 def main() -> int:
@@ -2132,7 +2608,8 @@ def main() -> int:
         bn = phase_bn_kernels(args.seed)
     served, trained, recorded = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
-        for path, fn in (("serve", phase_serve), ("plain_serve", phase_plain_serve)):
+        for path, fn in (("serve", phase_serve), ("plain_serve", phase_plain_serve),
+                         ("int8_serve", phase_int8_serve)):
             if path in phases:
                 with PathInputs() as recorded[path]:
                     served[path] = fn(args.seed, args.batches, outdir)

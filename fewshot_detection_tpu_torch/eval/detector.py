@@ -10,6 +10,14 @@ from ..models import meta as meta_mod
 from ..models.convert import from_jax_params
 from ..models.darknet import apply_network, fold_batchnorm, folded_spec, init_params
 from ..models.meta import MetaSpec, init_meta_params
+from ..models.quant import (
+    _is_quantizable,
+    absmax_observer,
+    apply_network_int8,
+    calibrate_act_scales,
+    quantize_weights,
+    scales_from_absmax,
+)
 from ..models.spec import build_spec
 from ..models.weights_io import WeightsHeader, load_weights, load_weights_bf16_gz
 
@@ -65,12 +73,26 @@ class PlainDetector:
         self.width = self.spec.width
         self.height = self.spec.height
         self.compute_dtype = compute_dtype
+        self.qparams = None
+        self.act_scales = None
+
+    def quantize_int8(self, calib_images: np.ndarray) -> None:
+        """Switch serving to the int8 product (models/quant.py): per-channel
+        int8 weights from the folded graph, per-tensor activation scales
+        calibrated in float32 on `calib_images` (a representative
+        (N, H, W, 3) [0,1] batch). Stem and head stay in the compute dtype."""
+        self.qparams = quantize_weights(self.fspec, self.params)
+        self.act_scales = calibrate_act_scales(
+            self.fspec, self.params, np.asarray(calib_images, np.float32))
 
     @torch.no_grad()
     def __call__(self, images) -> torch.Tensor:
         """images: (B, H, W, 3) float32 [0,1] -> raw head output (B, H/32,
-        W/32, A*(5+nC)) in float32, left on the device for the box decode."""
+        W/32, A*(5+nC)) in float32, left on the device for the box decode;
+        through the int8 graph once `quantize_int8` ran."""
         x = _to_device(images, self.device, self.compute_dtype)
+        if self.qparams is not None:
+            return apply_network_int8(self.fspec, self.qparams, self.act_scales, x).float()
         y, _ = apply_network(self.fspec, self.params, x, train=False)
         return y.float()
 
@@ -111,6 +133,69 @@ class MetaDetector:
         self.width = self.spec.darknet.width
         self.height = self.spec.darknet.height
         self.compute_dtype = compute_dtype
+        # the int8 graphs, set by quantize_int8 (detect) and with
+        # calib_support (class_codes)
+        self.qspec = self.qparams = self.act_scales = None
+        self.lqspec = self.lqparams = self.learnet_act_scales = None
+
+    @torch.no_grad()
+    def quantize_int8(self, calib_images: np.ndarray, dynamic_weights,
+                      calib_support=None, quant_head: bool = False) -> None:
+        """int8 serving for the meta path: fold BN into the backbone convs,
+        quantize them per channel, calibrate activation scales on
+        `calib_images` in the compute dtype. The class codes do not
+        influence the activations before the reweighting, so any
+        representative `dynamic_weights` serve for calibration.
+
+        `calib_support=(metax, mask)` also quantizes the LEARNET (the
+        ensemble sweep's phase 1 runs it over every support image);
+        class_codes() then serves int8.
+
+        `quant_head=True` also runs the fused reweight+head contraction as
+        an int8 product (the effective per-class weights are quantized on
+        the device at each call, since they depend on the sweep's codes)."""
+        dfspec = folded_spec(self.spec.darknet)
+        dfolded = fold_batchnorm(self.spec.darknet, self.params["darknet"])
+        qspec = MetaSpec(dfspec, self.spec.learnet)
+        dyn_idx = next(
+            (l.index for l in dfspec.layers if l.kind == "conv" and l.dynamic), None)
+        absmax: dict[int, float] = {}
+        observe = absmax_observer(absmax, lambda idx: _is_quantizable(
+            dfspec, dfspec.layers[idx]) or (quant_head and idx == dyn_idx))
+        meta_mod.detect_forward(
+            qspec, {"darknet": dfolded, "learnet": None},
+            self._to_device(np.asarray(calib_images, np.float32), self.compute_dtype),
+            [self._to_device(d, torch.float32) for d in dynamic_weights],
+            fuse=True, observe=observe,
+        )
+        self.act_scales = scales_from_absmax(absmax)
+        self.qparams = quantize_weights(dfspec, dfolded)
+        self.qspec = qspec
+        if calib_support is not None:
+            self._quantize_learnet(calib_support)
+
+    def _quantize_learnet(self, calib_support) -> None:
+        """Fold and quantize the learnet convs per channel, calibrate their
+        input scales on a support batch, and route class_codes() through
+        the int8 graph."""
+        lfspec = folded_spec(self.spec.learnet)
+        lfolded = fold_batchnorm(self.spec.learnet, self.params["learnet"])
+        # the (unquantized, folded) darknet serves the feat_layer stem
+        dfolded = fold_batchnorm(self.spec.darknet, self.params["darknet"])
+        lqspec = MetaSpec(folded_spec(self.spec.darknet), lfspec)
+        absmax: dict[int, float] = {}
+        observe = absmax_observer(
+            absmax, lambda idx: _is_quantizable(lfspec, lfspec.layers[idx]))
+        metax, mask = calib_support
+        meta_mod.meta_forward(
+            lqspec, {"darknet": dfolded, "learnet": lfolded},
+            self._to_device(np.asarray(metax, np.float32), self.compute_dtype),
+            self._to_device(np.asarray(mask, np.float32), self.compute_dtype),
+            metain_type=self.metain_type, observe=observe,
+        )
+        self.learnet_act_scales = scales_from_absmax(absmax)
+        self.lqparams = {"darknet": dfolded, "learnet": quantize_weights(lfspec, lfolded)}
+        self.lqspec = lqspec
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         return _to_device(a, self.device, dtype)
@@ -124,11 +209,14 @@ class MetaDetector:
     def class_codes(self, metax: np.ndarray, mask: np.ndarray) -> list[np.ndarray]:
         """Support batch -> list of per-class code tensors (N, 1, 1, C).
         Returned as float32 host arrays (they get averaged/spliced on host)."""
+        spec, params = self.spec, self.params
+        if self.lqparams is not None:
+            spec, params = self.lqspec, self.lqparams
         out, _ = meta_mod.meta_forward(
-            self.spec, self.params,
+            spec, params,
             self._to_device(metax, self.compute_dtype),
             self._to_device(mask, self.compute_dtype),
-            metain_type=self.metain_type,
+            metain_type=self.metain_type, act_scales=self.learnet_act_scales,
         )
         return [d.float().cpu().numpy() for d in out]
 
@@ -138,7 +226,12 @@ class MetaDetector:
         on the device for the box decode. Rows are image-major."""
         x = self._to_device(images, self.compute_dtype)
         dw = [self._to_device(d, self.compute_dtype) for d in dynamic_weights]
-        y, _ = meta_mod.detect_forward(self.spec, self.params, x, dw, fuse=True)
+        if self.qparams is not None:
+            y, _ = meta_mod.detect_forward(
+                self.qspec, {"darknet": self.qparams, "learnet": None}, x, dw,
+                fuse=True, act_scales=self.act_scales)
+        else:
+            y, _ = meta_mod.detect_forward(self.spec, self.params, x, dw, fuse=True)
         return y.float()
 
     def __call__(self, images, metax, mask) -> torch.Tensor:

@@ -96,12 +96,22 @@ def refuse_eval_mesh() -> None:
             "FSD_EVAL_MESH is set, but the sweep over several devices is not ported yet")
 
 
-def refuse_int8() -> None:
-    """FSD_INT8 (the JAX package's int8 ensemble sweep, with FSD_INT8_HEAD
-    choosing an int8 head) is not ported yet: refused rather than ignored."""
-    if os.environ.get("FSD_INT8", "0") == "1":
-        raise NotImplementedError(
-            "FSD_INT8=1 is set, but int8 serving (models/quant.py) is not ported yet")
+def quantize_sweep(m: MetaDetector, ds, codes, batch_size: int) -> bool:
+    """FSD_INT8=1: int8 serving for the whole sweep. The activation scales
+    are calibrated on the first min(batch_size, 16) images of the valid list
+    (the weights are per-channel symmetric, so one representative batch
+    suffices; models/quant.py), and the fused reweight+head contraction runs
+    as an int8 product too unless FSD_INT8_HEAD=0. Returns whether it
+    quantized."""
+    if os.environ.get("FSD_INT8", "0") != "1":
+        return False
+    calib_imgs, _ = next(iter(ds.batches(min(batch_size, 16), drop_last=False)))
+    m.quantize_int8(
+        calib_imgs, [c.astype(np.float32) for c in codes],
+        quant_head=os.environ.get("FSD_INT8_HEAD", "1") == "1",
+    )
+    print("===> int8 serving calibrated for the sweep")
+    return True
 
 
 def eval_batch_size(default: int = 2) -> int:
@@ -221,10 +231,9 @@ def run_valid_ensemble(
     batch_size: int | None = None,
     device="cuda",
 ) -> str:
-    """The whole ensemble sweep in full float32 on `device`; returns the
-    results prefix."""
+    """The whole ensemble sweep in full float32 on `device` (int8 under
+    FSD_INT8=1, see `quantize_sweep`); returns the results prefix."""
     refuse_eval_mesh()
-    refuse_int8()
     set_float32_precision(tf32=False)
     batch_size = batch_size or eval_batch_size()
     m = MetaDetector(darknetcfg, learnetcfg, weightfile,
@@ -274,6 +283,7 @@ def run_valid_ensemble(
         data_options["valid"], settings, shape=(m.width, m.height),
         shuffle=False, train=False, filter_valid=False,
     )
+    quantize_sweep(m, ds, codes, batch_size)
     # the fixed codes go to the device once; per-batch conversion would
     # cost n_cls transfers on every sweep batch
     fixed = m.commit_codes(codes)

@@ -167,6 +167,8 @@ def apply_network(
     start: int = 0,
     stop: int | None = None,
     remat: bool = False,
+    observe=None,
+    act_scales=None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Run a static network. Returns (output, aux) where aux carries
     ``bn_updates`` ({layer_index: new stats} when train=True) and
@@ -177,6 +179,10 @@ def apply_network(
     learnet stems and partial-backbone extraction). ``remat`` (training
     only) recomputes the BN/activation epilogues in the backward, see
     `bn_train_activate`.
+
+    ``observe(layer_index, x)`` is called with every static conv's input
+    (int8 calibration hook); conv params carrying ``wq`` run the int8
+    product with ``act_scales[layer_index]`` (models/quant.py).
     """
     outputs: dict[int, torch.Tensor] = {}
     bn_updates: dict[int, dict] = {}
@@ -188,9 +194,17 @@ def apply_network(
         if kind == "conv":
             if layer.dynamic:
                 raise ValueError("dynamic conv in a static network — use models.meta")
-            x, stats = apply_conv_layer(layer, params[layer.index], x, train, remat)
-            if stats is not None:
-                bn_updates[layer.index] = stats
+            p = params[layer.index]
+            if observe is not None:
+                observe(layer.index, x)
+            if p is not None and "wq" in p:
+                from .quant import conv_int8  # lazy: quant imports darknet
+
+                x = conv_int8(layer, p, x, act_scales[layer.index])
+            else:
+                x, stats = apply_conv_layer(layer, p, x, train, remat)
+                if stats is not None:
+                    bn_updates[layer.index] = stats
         elif kind == "maxpool":
             x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
         elif kind == "reorg":

@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.int8_mm import int8_matmul
 from ..ops.layers import (
     batchnorm_apply,
     global_avgpool,
@@ -41,6 +42,7 @@ from .darknet import (
     conv2d,
     init_params,
 )
+from .quant import QMAX, act_scale_inverse, conv_int8, device_scalar, quantize_act
 from .spec import LayerSpec, NetSpec
 
 
@@ -79,11 +81,17 @@ def meta_forward(
     metain_type: int = 2,
     train: bool = False,
     remat: bool = False,
+    act_scales: dict[int, float] | None = None,
+    observe=None,
 ) -> tuple[list[torch.Tensor], dict]:
     """Support branch: (N, Hm, Wm, 3|6) images + (N, Hmask, Wmask, 1) masks
     -> (list of per-class code tensors (N, 1, 1, C), one per learnet [split]
     plus the final output; aux with ``bn_updates`` keyed ``darknet_stem``
-    (feat_layer > 0 only) and ``learnet``)."""
+    (feat_layer > 0 only) and ``learnet``).
+
+    ``act_scales``/``observe`` drive the int8 LEARNET path; keys are learnet
+    layer indices. The feat_layer backbone stem, when active, stays on the
+    float path."""
     feat_layer = spec.learnet.feat_layer
     bn_updates: dict[str, dict] = {}
     if feat_layer > 0:
@@ -106,7 +114,8 @@ def meta_forward(
             raise ValueError(f"metain_type {metain_type} requires a mask input")
         metax = torch.cat([metax, mask.to(metax.dtype)], dim=-1)
 
-    out, aux = apply_network(spec.learnet, params["learnet"], metax, train=train, remat=remat)
+    out, aux = apply_network(spec.learnet, params["learnet"], metax, train=train, remat=remat,
+                             act_scales=act_scales, observe=observe)
     bn_updates["learnet"] = aux["bn_updates"]
     return list(aux["splits"]) + [out], {"bn_updates": bn_updates}
 
@@ -221,6 +230,55 @@ def fused_reweight_head(
     return _activate(y, activation)
 
 
+def head_int8_operands(
+    x: torch.Tensor, dw: torch.Tensor, head_w: torch.Tensor, sx: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 operands of `fused_reweight_head_int8`: the input codes
+    (B*H*W, C), the effective weight's codes (N*K, C) and its per-column
+    scales (N*K,) float32.
+
+    eff[c, n*K+k] = dw[n,c] * head_w[k,c] depends on the sweep's class
+    codes, so it is quantized on the device at each call, per output column:
+    scale = max(absmax, 1e-12) / 127 (not the weights' 0 -> 1 rule), taken
+    as a product with float32(1/127) as XLA takes the JAX package's division
+    by that constant."""
+    b, h, w, c = x.shape
+    n = dw.shape[0]
+    k = head_w.shape[0]
+    w_cls = dw.reshape(n, c).float()
+    eff = (w_cls.t()[:, :, None] * head_w.reshape(k, c).t()[:, None, :].float()).reshape(c, n * k)
+    inv127 = device_scalar(act_scale_inverse(QMAX), x.device)
+    scale = torch.clamp(eff.abs().amax(dim=0), min=1e-12) * inv127
+    effq = torch.clamp(torch.round(eff / scale), -QMAX, QMAX).to(torch.int8)
+    xq = quantize_act(x, device_scalar(act_scale_inverse(sx), x.device))
+    return xq.reshape(b * h * w, c), effq.t().contiguous(), scale
+
+
+def fused_reweight_head_int8(
+    x: torch.Tensor,
+    dw: torch.Tensor,
+    head_w: torch.Tensor,
+    head_b: torch.Tensor | None,
+    activation: str,
+    sx: float,
+) -> torch.Tensor:
+    """int8 variant of `fused_reweight_head` (the models/quant.py scheme):
+    the effective weight quantized per column at each call
+    (`head_int8_operands`), the input at the calibrated per-tensor scale
+    `sx`, one int8 product summed in int32 (N*K = 450 at 15 classes is
+    padded to a multiple of 8 inside `int8_matmul`), dequantized in float32
+    with the bias, then the activation."""
+    b, h, w, _ = x.shape
+    n = dw.shape[0]
+    k = head_w.shape[0]
+    xq, effq, scale = head_int8_operands(x, dw, head_w, sx)
+    y = int8_matmul(xq, effq).float() * (device_scalar(sx, x.device) * scale)
+    y = y.reshape(b, h, w, n, k).permute(0, 3, 1, 2, 4).reshape(b * n, h, w, k)
+    if head_b is not None:
+        y = y + head_b.float()
+    return _activate(y.to(x.dtype), activation)
+
+
 # ---------------------------------------------------------------------------
 # detection forward
 # ---------------------------------------------------------------------------
@@ -235,8 +293,16 @@ def detect_forward(
     train: bool = False,
     fuse: bool = True,
     remat: bool = False,
+    act_scales: dict[int, float] | None = None,
+    observe=None,
 ) -> tuple[torch.Tensor, dict]:
     """Backbone + dynamic reweighting + head.
+
+    ``act_scales``/``observe`` serve the int8 path (models/quant.py): static
+    convs whose params carry ``wq`` run the int8 product with the given
+    activation scales, and so does the fused reweight+head when
+    ``act_scales`` holds the dynamic conv's index; ``observe(idx, x)``
+    records calibration inputs.
 
     x: (B, H, W, 3); dynamic_weights: list of (n_cls, kh, kw, Cd).
     Returns ((B*n_cls, H/32, W/32, A*(5+nC)) image-major rows, aux with
@@ -277,10 +343,18 @@ def detect_forward(
                 is_first = dyn_cnt == 0
                 nxt = layers[li + 1] if li + 1 < len(layers) else None
                 if fuse and is_first and _can_fuse(layer, nxt, dw, x):
+                    if observe is not None:
+                        observe(layer.index, x)
                     head_p = dparams[nxt.index]
-                    x = fused_reweight_head(
-                        x, dw, head_p["w"], head_p.get("b"), nxt.activation
-                    )
+                    if act_scales is not None and layer.index in act_scales:
+                        x = fused_reweight_head_int8(
+                            x, dw, head_p["w"], head_p.get("b"), nxt.activation,
+                            act_scales[layer.index],
+                        )
+                    else:
+                        x = fused_reweight_head(
+                            x, dw, head_p["w"], head_p.get("b"), nxt.activation
+                        )
                     skip_next = True
                 else:
                     x = dynamic_conv_general(x, dw, layer, is_first=is_first)
@@ -295,9 +369,15 @@ def detect_forward(
                         x = _activate(x, layer.activation)
                 dyn_cnt += 1
             else:
-                x, stats = apply_conv_layer(layer, dparams[layer.index], x, train, remat)
-                if stats is not None:
-                    bn_updates[layer.index] = stats
+                p = dparams[layer.index]
+                if observe is not None:
+                    observe(layer.index, x)
+                if not train and p is not None and "wq" in p:
+                    x = conv_int8(layer, p, x, act_scales[layer.index])
+                else:
+                    x, stats = apply_conv_layer(layer, p, x, train, remat)
+                    if stats is not None:
+                        bn_updates[layer.index] = stats
         elif kind == "maxpool":
             x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
         elif kind == "reorg":

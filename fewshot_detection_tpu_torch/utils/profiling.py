@@ -11,7 +11,10 @@ story was hand-rolled time.time() stopwatches behind `if False:` flags
     traced device is a CUDA device) that writes a Chrome trace
     `<dir>/trace_<pid>_<n>.pt.trace.json` when FSD_PROFILE_DIR (or the
     argument) is set; `python -m fewshot_detection_tpu_torch.utils.trace_summary
-    <dir>` summarises it
+    <dir>` summarises it. A CUDA trace opens with WARMUP_LAUNCHES spin
+    kernels (`warm_up_cuda_trace`): a trace on the card can miss its first
+    device events (seen on an H100 by chip_smoke.py: a training step's
+    first bn_sums forward, and the only kernel of one short call)
 """
 
 from __future__ import annotations
@@ -63,6 +66,18 @@ class StepTimer:
 
 
 _trace_ids = itertools.count()
+WARMUP_LAUNCHES = 64
+WARMUP_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel, as traces name it
+
+
+def warm_up_cuda_trace() -> None:
+    """WARMUP_LAUNCHES spin kernels of one cycle each, then a synchronise:
+    the first device events of a trace, which it can miss."""
+    import torch
+
+    for _ in range(WARMUP_LAUNCHES):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
 
 
 @contextlib.contextmanager
@@ -84,5 +99,7 @@ def trace(log_dir: str | None = None, device=None):
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{next(_trace_ids)}.pt.trace.json")
     with profile(activities=activities) as prof:
+        if ProfilerActivity.CUDA in activities:
+            warm_up_cuda_trace()
         yield path
     prof.export_chrome_trace(path)

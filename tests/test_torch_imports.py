@@ -15,7 +15,8 @@ PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 
 ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.py",
                 "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
-                "train_torch.py", "partial_torch.py", "scripts/full_workflow_torch.py")
+                "train_torch.py", "partial_torch.py", "scripts/full_workflow_torch.py",
+                "scripts/int8_map_torch.py")
 TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref", "tests")
 
 
@@ -39,7 +40,8 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "          'eval.harness', 'cli.train_plain_cli', 'native', 'native.loader',\n"
         "          'data.mploader', 'data.prep', 'data.coco_prep', 'train.checkpoint',\n"
         "          'utils.profiling', 'utils.trace_summary', 'data.synth', 'cli.workflow',\n"
-        "          'cli.partial', 'data.png'):\n"
+        "          'cli.partial', 'data.png', 'models.quant', 'ops.int8_mm', 'models.zoo',\n"
+        "          'models.caffe_net', 'ops.focal_loss'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"

@@ -11,8 +11,7 @@ step on a run from random weights. The meta run's learning rate is a tenth
 of test_torch_train_cli.py's: on these images the drift at that file's rate
 grows to 1.3e-2 by the tenth line and 3e-2 by the twelfth (measured on the
 CPU), while at this rate it is 3e-7 on the first line and 3e-3 on the
-twelfth, as that file measured for its own images. Also: FSD_INT8=1 is
-refused by the port's ensemble sweep."""
+twelfth, as that file measured for its own images."""
 
 import contextlib
 import dataclasses
@@ -152,18 +151,3 @@ def test_plain_cli_on_native_workers_matches_the_jax_cli(ws, monkeypatch):
     assert sorted(os.listdir(os.path.join(ws["root"], "plain_torchfix_novel0"))) == \
         sorted(os.listdir(os.path.join(ws["root"], "plain_jaxfix_novel0")))
 
-
-def test_int8_serving_is_refused(ws, monkeypatch):
-    """FSD_INT8=1 asks for the JAX package's int8 sweep, which the port does
-    not have: refused before any file is read."""
-    from fewshot_detection_tpu_torch.eval import valid
-
-    monkeypatch.setenv("FSD_INT8", "1")
-    with pytest.raises(NotImplementedError, match="FSD_INT8"):
-        valid.run_valid_ensemble({"meta": "no.txt", "valid": "no.txt"}, ws["dk"], ws["ln"],
-                                 "no.weights", None, device="cpu")
-    monkeypatch.setenv("FSD_INT8_HEAD", "0")
-    with pytest.raises(NotImplementedError, match="int8 serving"):
-        valid.refuse_int8()
-    monkeypatch.setenv("FSD_INT8", "0")
-    valid.refuse_int8()

@@ -2,6 +2,8 @@
 parameter tree and one numpy input go to the JAX package and to the
 PyTorch port, both on the CPU."""
 
+import fcntl
+import hashlib
 import os
 
 import numpy as np
@@ -90,26 +92,68 @@ def assert_results_close(got, want, tol):
 
 
 
-def jax_native_loader():
-    """The JAX package's native loader module, its library in place and
-    loaded. That loader compiles straight into its output file, so test
-    processes building it side by side (worker processes of a loader
-    included) could read each other's half-written library: here it is
-    compiled under a temporary name with the loader's own command and moved
-    into place whole. Fails when it cannot be built, because the JAX
-    datasets would then fall back to PIL, and a comparison with the port's
-    native path would compare different things."""
+JAX_LIB_BUILD_DIR = os.path.join(REPO, "fewshot_detection_tpu_torch", "_build")
+
+
+def _build_whole(loader, path):
+    """The JAX loader's own compile command, written under a temporary name
+    and moved into place whole."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    lib = loader._LIB
+    loader._LIB = tmp
+    try:
+        err = loader._build()
+    finally:
+        loader._LIB = lib
+    assert err is None, err
+    os.replace(tmp, path)
+
+
+def build_jax_native_library(default_lib=None, build_dir=JAX_LIB_BUILD_DIR) -> str:
+    """The JAX package's native library whole on disk, at its own path
+    (`default_lib`, the package's `native/libimagepipe.so`) and as a private
+    copy under `build_dir` named by the source's digest; returns the copy's
+    path.
+
+    The JAX loader compiles straight into its output file and decides by
+    mtime, so processes that ask for it at once can load a file another is
+    still writing. Here, under a file lock that every test process takes,
+    each of the two is compiled under a temporary name with the loader's own
+    command and moved into place whole, if missing or stale. Loader
+    processes the JAX package spawns load the package's path; nothing ever
+    writes the private copy in place."""
     from fewshot_detection_tpu.native import loader
 
-    lib = loader._LIB
-    if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(loader._SRC):
-        tmp = f"{lib}.tmp.{os.getpid()}"
-        loader._LIB = tmp
-        try:
-            err = loader._build()
-        finally:
-            loader._LIB = lib
-        assert err is None, err
-        os.replace(tmp, lib)
+    default_lib = default_lib or os.path.join(os.path.dirname(loader.__file__), "libimagepipe.so")
+    with open(loader._SRC, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    private = os.path.join(build_dir, f"jax_libimagepipe_{digest}.so")
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "jax_libimagepipe.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for path in (default_lib, private):
+            if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(loader._SRC):
+                _build_whole(loader, path)
+    return private
+
+
+def jax_native_loader(default_lib=None, build_dir=JAX_LIB_BUILD_DIR):
+    """The JAX package's native loader module, its library whole on disk
+    (`build_jax_native_library`) and loaded in this process from the private
+    copy. Fails when it cannot be built, because the JAX datasets would then
+    fall back to PIL, and a comparison with the port's native path would
+    compare different things.
+
+    The loader's state in this process (`_LIB`, `_lib`, `_build_error`) is
+    pointed at the private copy, dropping whatever it loaded or failed to
+    load before: a process that asked while another was writing the
+    package's path keeps that failure ("file too short") for its life, or a
+    library loaded from a file then rewritten under it."""
+    from fewshot_detection_tpu.native import loader
+
+    private = build_jax_native_library(default_lib, build_dir)
+    with loader._lock:
+        if loader._LIB != private:
+            loader._LIB, loader._lib, loader._build_error = private, None, None
     assert loader.native_available(), loader.build_error()
     return loader
