@@ -45,7 +45,13 @@ phases, each printing JSON lines:
            step through the plain `bn_sums`, a `remat` step, 2 warm-up + 5
            timed steps with 29 forward and 29 backward `bn_sums` launches
            each, running statistics that moved, peak memory, images/s and the
-           share of a step spent in the `bn_sums` kernels; then `bn_sums_step`,
+           share of a step spent in the `bn_sums` kernels; then `train_s2d`:
+           the space-to-depth stem (`s2d=True`) against the plain stem, one
+           float32 step each way from the same parameters and episode (the
+           loss within 1e-5, the norms of each leaf's update and of the
+           whole tree's within 2e-2 and 2e-4 of the plain stem's, the
+           first-step check's bounds for two float32 answers), and images/s and peak memory of both stems in both types,
+           29 + 29 `bn_sums` launches a step; then `bn_sums_step`,
            the kernels' time and byte bound summed over the 29 BN layers of
            one step, forward and backward, both types
   plain_serve  the plain YOLOv2 family at full width (cfg/yolo-voc.cfg,
@@ -62,7 +68,12 @@ phases, each printing JSON lines:
   plain_train  PlainTrainer at the cfg's batch 64, 416 px, one group, as
            train_plain_cli derives lr and weight decay, from the same seeded
            weights on images painted from the seed: as `train`, with 22 + 22
-           `bn_sums` launches a step; then `bn_sums_step` for its 22 layers
+           `bn_sums` launches a step, `plain_train_s2d` as `train_s2d`; then
+           `bn_sums_step` for its 22 layers
+  debug    debug_torch.py's main on cfg/yolo-voc.cfg from the seeded weights
+           and a painted PNG with its label file (FSD_NATIVE=1): one training
+           forward and backward on the card, 22 + 22 `bn_sums` launches, the
+           loss and every conv's largest weight gradient finite
   int8_serve  int8 serving (FSD_INT8=1, models/quant.py; the int8 products
            are torch._int_mm through ops/int8_mm.py) at full width on the
            tracked checkpoint over 32 images of the workflow's synthetic
@@ -88,17 +99,19 @@ phases, each printing JSON lines:
   native   the host toolchain (`g++ --version`, zlib's header and library;
            nothing decides from it) and the port's native image library
            built with g++ from its sources (its own PNG decoder on zlib and
-           baseline-JPEG decoder, -lz -pthread only): PNGs written by
+           JPEG decoder, -lz -pthread only): PNGs written by
            data/png.py decoding bit-equal to the arrays written, over every
            colour type, bit depth, row filter and Adam7 (to libpng's pixels,
            data/png.libpng_rgb); the JPEG fixtures of
            tests/data_torch/jpeg/ and the repo's predictions.jpg decoding to
            their committed SHA-256 digests (the JAX package's libjpeg-turbo
-           decode), image_size equal on each, a progressive file refused
-           with an error that names it; decode throughput on the card's host
-           (MB/s of RGB output and images/s, one thread) and the pthread batch
-           assembler's images/s (64 VOC-sized images decoded, augmented and
-           resized to 416), for PNG and for JPEG
+           decode: baseline, progressive, arithmetic; what that library fails
+           on too is refused with an error that names it), image_size equal
+           on each; decode throughput on the card's host (MB/s of RGB output
+           and images/s, one thread) and the pthread batch assembler's
+           images/s (64 images decoded, augmented and resized to 416), for
+           VOC-sized PNGs, predictions.jpg, and its progressive and
+           arithmetic transcodes
   ckpt     full-state checkpoints of the meta step (the `train` phase's
            cfgs, checkpoint, batch 64, 15-way, bfloat16): 2 steps, a
            synchronous save, an async save (FSD_ASYNC_CKPT=1) with a step
@@ -221,6 +234,7 @@ from fewshot_detection_tpu_torch.utils import format_loss_line
 from fewshot_detection_tpu_torch.utils.profiling import WARMUP_KERNEL, trace, warm_up_cuda_trace
 from fewshot_detection_tpu_torch.utils.trace_summary import find_trace_files, load_events, summarize
 
+import debug_torch
 import detect_torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1169,6 +1183,121 @@ def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
             "bn_kernels_share": kernels_ms / step_ms, "bn_layer_shapes": clock.forward_shapes}
 
 
+def timed_steps(trainer, load_params, episodes, lr, seen0: int, batch_size: int,
+                bn_layers: int) -> dict:
+    """TRAIN_WARMUP_STEPS + timed steps from fresh parameters: images/s of
+    the timed ones, peak memory, and the bn_sums launches, which must be
+    `bn_layers` forward and backward a step."""
+    params = load_params()
+    mom = init_momentum(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bn_sums.launches = bn_sums.backward_launches = 0
+    seen = seen0
+    for i, ep in enumerate(episodes):
+        if i == TRAIN_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        seen += batch_size
+        params, mom, metrics = trainer.step(params, mom, ep, seen=seen, lr=lr(i))
+        float(metrics["loss"])  # the step's one host sync, as in the main path
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = len(episodes)
+    launches = (bn_sums.launches, bn_sums.backward_launches)
+    check(launches == (bn_layers * steps, bn_layers * steps),
+          f"{steps} steps launched {launches} bn_sums kernels")
+    return {"images_per_s": (steps - TRAIN_WARMUP_STEPS) * batch_size / seconds,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": [launches[0] // steps, launches[1] // steps],
+            "fwd": launches[0], "bwd": launches[1]}
+
+
+# The s2d stem against the plain one in float32 (TF32 off), one step from
+# the same parameters and episode, held as the first-step check holds two
+# float32 answers (the kernel against the plain version): the loss within
+# 1e-5, and the norm of each leaf's update and of the whole tree's within
+# twice the first-step bounds (2e-2 and 2e-4). The update VECTORS are
+# reported, not held: first-layer gradients are sums of millions of
+# cancelling terms, and two right float32 orders move them by percents (on
+# the H100 at batch 64: 1.5% in the first BN's beta, 1.1e-3 over the whole
+# tree); beside
+# them, the same gaps between the plain stem through the kernel and through
+# the plain `bn_sums`, two other right float32 answers.
+S2D_TOL = {"loss": 1e-5, "all": 1e-4, "leaf": 1e-2}
+
+
+def s2d_variants(tag: str, make_trainer, load_params, make_episodes, lr, seen0: int,
+                 batch_size: int, bn_layers: int) -> dict:
+    """The space-to-depth stem (`s2d=True`) of training path `tag` against
+    its plain stem: one float32 step each way compared, then images/s and
+    peak memory of both stems in both types. `make_trainer(dtype, **kw)`
+    builds the trainer, `make_episodes(dtype_name)` the batches. Returns the
+    bn_sums launches of the s2d runs."""
+    report, total = {}, {"fwd": 0, "bwd": 0}
+    ep = make_episodes("float32")[0]
+    deltas, losses = {}, {}
+    for way in ("plain_stem", "s2d", "plain_stem_plain_sums"):
+        params = load_params()
+        start = {p: t.detach().clone() for p, t in tree_leaves_with_path(params)}
+        bn_sums.launches = bn_sums.backward_launches = 0
+        if way == "plain_stem_plain_sums":
+            layers.bn_sums = bn_sums_reference
+        try:
+            _, _, metrics = make_trainer(torch.float32, s2d=way == "s2d").step(
+                params, init_momentum(params), ep, seen=seen0 + batch_size, lr=lr(0))
+        finally:
+            layers.bn_sums = bn_sums
+        losses[way] = float(metrics["loss"])
+        want = (0, 0) if way == "plain_stem_plain_sums" else (bn_layers, bn_layers)
+        check((bn_sums.launches, bn_sums.backward_launches) == want,
+              f"a {way} step launched {bn_sums.launches} + {bn_sums.backward_launches}")
+        if way == "s2d":
+            total["fwd"] += bn_sums.launches
+            total["bwd"] += bn_sums.backward_launches
+        deltas[way] = {p: (t.detach() - start[p]).double() for p, t in tree_leaves_with_path(params)}
+        del params, start
+    base = deltas["plain_stem"]
+    gaps, norms = {}, {}
+    for way in ("s2d", "plain_stem_plain_sums"):
+        worst, gap2, norm2 = 0.0, 0.0, 0.0
+        for p, d in base.items():
+            gap, size = float((deltas[way][p] - d).norm()), float(d.norm())
+            gap2, norm2 = gap2 + gap * gap, norm2 + size * size
+            worst = max(worst, gap / size if size else 0.0)
+        gaps[way] = {"whole_tree": (gap2 / norm2) ** 0.5, "worst_leaf": worst}
+    for way in ("plain_stem", "s2d"):
+        leaf = {p: float(d.norm()) for p, d in deltas[way].items()}
+        norms[way] = {"leaves": leaf, "all": sum(v * v for v in leaf.values()) ** 0.5}
+    worst_norm = max(abs(norms["s2d"]["leaves"][p] - v) / v
+                     for p, v in norms["plain_stem"]["leaves"].items() if v)
+    rel_all = abs(norms["s2d"]["all"] - norms["plain_stem"]["all"]) / norms["plain_stem"]["all"]
+    emit(f"{tag}_s2d_float32_step", losses=losses, update_norm_rel_whole_tree=rel_all,
+         update_norm_rel_worst_leaf=worst_norm, update_vector_rel_gap=gaps, leaves=len(base),
+         rel_tolerance=S2D_TOL)
+    check(np.isfinite(losses["s2d"]) and abs(losses["s2d"] - losses["plain_stem"])
+          <= S2D_TOL["loss"] * abs(losses["plain_stem"]),
+          f"s2d loss {losses['s2d']} against the plain stem's {losses['plain_stem']}")
+    check(rel_all <= 2 * S2D_TOL["all"], f"s2d update norm {rel_all} off, whole tree")
+    for p, v in norms["plain_stem"]["leaves"].items():
+        got = norms["s2d"]["leaves"][p]
+        check(abs(got - v) <= 2 * S2D_TOL["leaf"] * v, f"s2d update norm of {p}: {got} against {v}")
+    del deltas
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        episodes = make_episodes(name)
+        for s2d in (False, True):
+            got = timed_steps(make_trainer(dtype, s2d=s2d), load_params, episodes, lr, seen0,
+                              batch_size, bn_layers)
+            report[f"{name}_{'s2d' if s2d else 'plain_stem'}"] = got
+            if s2d:
+                total["fwd"] += got["fwd"]
+                total["bwd"] += got["bwd"]
+            torch.cuda.empty_cache()
+    emit(f"{tag}_s2d", batch=batch_size, size=416, **report)
+    return total
+
+
 def run_train_variants(name: str, variant) -> dict:
     """`variant(dtype)` for float32 and bfloat16, each emitted as phase
     `name`; returns the bn_sums launches of their main paths, summed, and the
@@ -1216,7 +1345,21 @@ def phase_train(seed: int) -> dict:
                                BN_LAYERS, META_PICKS, dtype)
         return {"n_cls": TRAIN_N_CLS, **report}
 
-    return run_train_variants("train", variant)
+    def make_episodes(name):
+        return [make_episode(seed + i, sched.batch_size, TRAIN_N_CLS, 416, name)
+                for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)]
+
+    def make_trainer(dtype, **kw):
+        return MetaTrainer(spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
+                           metain_type=2, image_dtype=dtype, warmup_seen=12800,
+                           device=DEVICE, **kw)
+
+    total = run_train_variants("train", variant)
+    s2d = s2d_variants("train", make_trainer, load_params, make_episodes,
+                       lambda i: sched.lr(processed + i), SEEN, sched.batch_size, BN_LAYERS)
+    total["fwd"] += s2d["fwd"]
+    total["bwd"] += s2d["bwd"]
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1833,7 +1976,16 @@ def phase_plain_train(seed: int) -> dict:
                              setup.load_params, episodes, sched.lr, 0, sched.batch_size,
                              PLAIN_BN_LAYERS, PLAIN_PICKS, dtype)
 
-    return run_train_variants("plain_train", variant)
+    def make_episodes(name):
+        return [make_plain_episode(seed + 100 + i, sched.batch_size, name)
+                for i in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)]
+
+    total = run_train_variants("plain_train", variant)
+    s2d = s2d_variants("plain_train", setup.make_trainer, setup.load_params, make_episodes,
+                       sched.lr, 0, sched.batch_size, PLAIN_BN_LAYERS)
+    total["fwd"] += s2d["fwd"]
+    total["bwd"] += s2d["bwd"]
+    return total
 
 
 def phase_bn_step(path: str, shapes: list, n_layers: int, seed: int) -> None:
@@ -1868,6 +2020,58 @@ def phase_bn_step(path: str, shapes: list, n_layers: int, seed: int) -> None:
         report[name] = {**total, "values": sum(m * c for m, c in shapes),
                         "shapes": list(per_shape.values())}
     emit("bn_sums_step", path=path, layers=len(shapes), **report)
+
+
+def phase_debug(seed: int) -> dict:
+    """debug_torch.py's main on cfg/yolo-voc.cfg from the seeded weights of
+    `plain_params` (written as a .weights file) and a painted VOC-sized PNG
+    with its label file, read through the native pipeline (FSD_NATIVE=1: the
+    card's host has no PIL): one training forward and autograd backward on
+    the card, 22 + 22 bn_sums launches, the loss and each conv's largest
+    weight gradient finite, nGT the label's objects."""
+    spec = build_spec(parse_cfg(PLAIN_CFG))
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_debug_") as d:
+        weights = os.path.join(d, "yolo-voc.weights")
+        save_weights(weights, [spec], [plain_params(spec, seed)])
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(d, sub))
+        img, objs = paint_voc_image(rng, 7)
+        h, w = img.shape[:2]
+        path = os.path.join(d, "images", "scene.png")
+        png.write_png(path, img)
+        with open(os.path.join(d, "labels", "scene.txt"), "w") as f:
+            for cls, x1, y1, x2, y2 in objs:
+                f.write(f"{cls} {(x1 + x2) / 2 / w} {(y1 + y2) / 2 / h} "
+                        f"{(x2 - x1) / w} {(y2 - y1) / h}\n")
+        old = os.environ.get("FSD_NATIVE")
+        os.environ["FSD_NATIVE"] = "1"
+        out = io.StringIO()
+        try:
+            bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                loss, grad_max = debug_torch.main(PLAIN_CFG, weights, path)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = (bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies)
+        finally:
+            if old is None:
+                os.environ.pop("FSD_NATIVE")
+            else:
+                os.environ["FSD_NATIVE"] = old
+    lines = out.getvalue().splitlines()
+    n_convs = sum(1 for layer in spec.layers if layer.kind == "conv")
+    check(launches[:2] == (PLAIN_BN_LAYERS, PLAIN_BN_LAYERS),
+          f"debug_torch.py launched {launches[:2]} bn_sums kernels")
+    check(np.isfinite(loss) and len(grad_max) == n_convs and np.isfinite(grad_max).all()
+          and min(grad_max) > 0, f"loss {loss}, gradient maxima {grad_max}")
+    check(any(f"nGT={len(objs)}" in line for line in lines), f"nGT of {len(objs)} objects")
+    emit("debug", cfg=os.path.relpath(PLAIN_CFG, REPO), image=[w, h], objects=len(objs),
+         seconds=seconds, loss=loss, grad_max=grad_max, large=sum(g > 10 for g in grad_max),
+         printed_lines=len(lines), loss_line=next(l for l in lines if l.startswith("loss")),
+         bn_launches=list(launches[:2]))
+    return {"fwd": launches[0], "bwd": launches[1], "layout_copies": launches[2]}
 
 
 # ---------------------------------------------------------------------------
@@ -1969,7 +2173,9 @@ def sha256_rgb(arr: np.ndarray) -> str:
 
 def check_jpeg_fixtures(pipe) -> dict:
     """Every file of tests/data_torch/jpeg/manifest.json (and predictions.jpg):
-    its size, and its decode's digest or the refusal its error must name."""
+    its size, and its decode's digest (the JAX package's libjpeg-turbo
+    decode: progressive and arithmetic coding included) or, where that
+    library fails too, the refusal its error must name."""
     with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     outcome = {"decoded": 0, "refused": 0, "fails": 0}
@@ -1981,6 +2187,8 @@ def check_jpeg_fixtures(pipe) -> dict:
                 check(False, f"{name}: image_size read a size libjpeg refuses")
         else:
             check(list(pipe.image_size(path)) == entry["size"], f"{name}: image_size")
+        check(entry["port"] in ("refused", "fails") if entry["jax"] == "fails"
+              else entry["port"] == entry["jax"], f"{name}: the manifest's port entry")
         if entry["port"] in ("refused", "fails"):
             try:
                 pipe.decode(path)
@@ -2017,8 +2225,9 @@ def decode_rates(pipe, paths: list, params: np.ndarray) -> dict:
 def phase_native(seed: int, smi: str) -> dict:
     """The host toolchain and the port's native library: its build, PNGs
     written here decoding bit-equal to what libpng would give, the JPEG
-    fixtures to their committed digests, a progressive file refused, and
-    the decode and batch-assembler rates for PNG and for JPEG."""
+    fixtures to their committed digests, and the decode and batch-assembler
+    rates for PNG, baseline JPEG, and progressive and arithmetic transcodes
+    of predictions.jpg."""
     report = {"card": smi, **host_toolchain()}
     t0 = time.perf_counter()
     build_native_library()
@@ -2057,24 +2266,23 @@ def phase_native(seed: int, smi: str) -> dict:
                     matrix += 1
         report.update(png_cases_bit_equal=len(cases), png_matrix_bit_equal=matrix,
                       jpeg_fixtures=check_jpeg_fixtures(pipe))
-        progressive = os.path.join(JPEG_FIXTURES, "progressive.jpg")
-        try:
-            pipe.decode(progressive)
-            check(False, "a progressive JPEG decoded")
-        except IOError as e:
-            check(progressive in str(e) and "progressive" in str(e), str(e))
-            report["progressive_refusal"] = str(e).replace(REPO + os.sep, "")
-        # rates: 64 VOC-sized painted PNGs, 64 copies of predictions.jpg
+        # rates: 64 VOC-sized painted PNGs, 64 copies of predictions.jpg and
+        # of each of its two transcodes
         pngs, raws = [], []
         for i in range(64):
             img, _ = paint_voc_image(rng, i % 20)
             pngs.append(os.path.join(d, f"batch{i:02d}.png"))
             png.write_png(pngs[-1], img, level=1)
             raws.append(img)
-        jpgs = []
-        for i in range(64):
-            jpgs.append(os.path.join(d, f"photo{i:02d}.jpg"))
-            shutil.copyfile(os.path.join(REPO, "predictions.jpg"), jpgs[-1])
+        copies = {}
+        for kind, src in (("jpeg", os.path.join(REPO, "predictions.jpg")),
+                          ("progressive_jpeg", os.path.join(JPEG_FIXTURES,
+                                                            "predictions_progressive.jpg")),
+                          ("arithmetic_jpeg", os.path.join(JPEG_FIXTURES,
+                                                           "predictions_arithmetic.jpg"))):
+            copies[kind] = [os.path.join(d, f"{kind}{i:02d}.jpg") for i in range(64)]
+            for path in copies[kind]:
+                shutil.copyfile(src, path)
         draw = random.Random(seed)
 
         def params_for(sizes):
@@ -2084,7 +2292,8 @@ def phase_native(seed: int, smi: str) -> dict:
 
         png_params = params_for([(r.shape[1], r.shape[0]) for r in raws])
         report["png_rates"] = decode_rates(pipe, pngs, png_params)
-        report["jpeg_rates"] = decode_rates(pipe, jpgs, params_for([(400, 300)] * 64))
+        for kind, paths in copies.items():
+            report[f"{kind}_rates"] = decode_rates(pipe, paths, params_for([(400, 300)] * 64))
         batch, fails = pipe.load_batch(pngs, 416, 416, png_params)
         from_raw, raw_fails = pipe.load_batch_raw(raws, 416, 416, png_params)
         check(fails == raw_fails == 0, "the batch assembler failed an image")
@@ -2579,7 +2788,7 @@ def bn_kernel_entries(bn: dict, trained: dict) -> list:
 
 
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
-          "int8_serve", "native", "ckpt", "files", "workflow")
+          "debug", "int8_serve", "native", "ckpt", "files", "workflow")
 
 
 def main() -> int:
@@ -2619,6 +2828,9 @@ def main() -> int:
             with PathInputs() as recorded[path]:
                 trained[path] = fn(args.seed)
             phase_bn_step(path, trained[path]["bn_layer_shapes"], n_layers, args.seed)
+    if "debug" in phases:
+        with PathInputs() as recorded["debug"]:
+            trained["debug"] = phase_debug(args.seed)
     if "native" in phases:
         phase_native(args.seed, smi)
     if "ckpt" in phases:

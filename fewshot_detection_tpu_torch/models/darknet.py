@@ -21,27 +21,19 @@ import torch.nn.functional as F
 
 from ..ops.layers import (
     BN_EPS,
+    _activate,
     batchnorm_apply,
-    bn_normalize,
-    bn_train_affine,
+    bn_train_activate,
     global_avgpool,
     global_maxpool,
-    leaky_relu,
     maxpool,
     maxpool_stride1,
     reorg,
+    stem_s2d_conv_pool,
 )
 from .spec import LayerSpec, NetSpec
 
 Params = list  # list[dict | None], aligned with NetSpec.layers
-
-
-def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
-    if activation == "leaky":
-        return leaky_relu(x, 0.1)
-    if activation == "relu":
-        return torch.relu(x)
-    return x
 
 
 def conv2d(
@@ -59,30 +51,6 @@ def conv2d(
         x.permute(0, 3, 1, 2), w.to(x.dtype), None, stride, pad, 1, groups
     )
     return y.permute(0, 2, 3, 1)
-
-
-def _normalize_activate(y, inv, bias, activation: str) -> torch.Tensor:
-    return _activate(bn_normalize(y, inv, bias), activation)
-
-
-def bn_train_activate(
-    y: torch.Tensor, bn: dict, activation: str, remat: bool = False
-) -> tuple[torch.Tensor, dict]:
-    """Training BN + activation on a conv output; returns (out, new stats).
-
-    ``remat=True`` keeps the conv output and the batch statistics and
-    recomputes only the normalize/activation epilogue in the backward (the
-    tensors the JAX trainer's rematerialization policy saves). The
-    statistics stay outside the checkpointed function: recomputing them
-    would launch the `bn_sums` kernel once more over the whole conv output."""
-    inv, bias, new_stats = bn_train_affine(y, bn)
-    if remat:
-        from torch.utils.checkpoint import checkpoint
-
-        out = checkpoint(_normalize_activate, y, inv, bias, activation, use_reentrant=False)
-    else:
-        out = _normalize_activate(y, inv, bias, activation)
-    return out, new_stats
 
 
 def apply_conv_layer(
@@ -158,6 +126,37 @@ def init_params(spec: NetSpec, seed: int | np.random.Generator = 0) -> Params:
     return params
 
 
+def can_fuse_s2d_stem(spec: NetSpec) -> bool:
+    """True when layers 0-1 are the conv3x3(s1,p1)+maxpool(2,2) pattern the
+    space-to-depth stem handles (`ops/layers.py:stem_s2d_conv_pool`), and no
+    later layer routes back into them (the stem's full-resolution conv
+    output is never formed). Any other network takes the plain stem."""
+    if len(spec.layers) < 2:
+        return False
+    c0, p1 = spec.layers[0], spec.layers[1]
+    ok = (
+        c0.kind == "conv"
+        and not c0.dynamic
+        and c0.size == 3
+        and c0.stride == 1
+        and c0.pad == 1
+        and c0.groups == 1
+        and c0.activation in ("leaky", "relu", "linear")
+        and p1.kind == "maxpool"
+        and p1.size == 2
+        and p1.stride == 2
+    )
+    return ok and not any(s in (0, 1) for layer in spec.layers[2:] for s in layer.sources)
+
+
+def run_s2d_stem(spec: NetSpec, params: Params, x: torch.Tensor, train: bool, remat: bool):
+    """Layers 0-1 of an eligible network as the space-to-depth stem; returns
+    (output of layer 1, new BN stats of layer 0 or None)."""
+    p = params[0]
+    return stem_s2d_conv_pool(x, p["w"], p.get("bn"), spec.layers[0].activation, p.get("b"),
+                              train, remat)
+
+
 def apply_network(
     spec: NetSpec,
     params: Params,
@@ -167,6 +166,7 @@ def apply_network(
     start: int = 0,
     stop: int | None = None,
     remat: bool = False,
+    s2d_stem: bool = False,
     observe=None,
     act_scales=None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
@@ -178,7 +178,8 @@ def apply_network(
     ``start``/``stop`` run a sub-range of layers (used for feat_layer>0
     learnet stems and partial-backbone extraction). ``remat`` (training
     only) recomputes the BN/activation epilogues in the backward, see
-    `bn_train_activate`.
+    `bn_train_activate`. ``s2d_stem=True`` computes an eligible conv+pool
+    stem (`can_fuse_s2d_stem`) in space-to-depth form, the same function.
 
     ``observe(layer_index, x)`` is called with every static conv's input
     (int8 calibration hook); conv params carrying ``wq`` run the int8
@@ -188,8 +189,16 @@ def apply_network(
     bn_updates: dict[int, dict] = {}
     splits: list[torch.Tensor] = []
     end = stop if stop is not None else len(spec.layers)
+    layers = spec.layers[start:end]
 
-    for layer in spec.layers[start:end]:
+    if s2d_stem and start == 0 and end >= 2 and can_fuse_s2d_stem(spec):
+        x, stats = run_s2d_stem(spec, params, x, train, remat)
+        if stats is not None:
+            bn_updates[0] = stats
+        outputs[1] = x
+        layers = layers[2:]
+
+    for layer in layers:
         kind = layer.kind
         if kind == "conv":
             if layer.dynamic:

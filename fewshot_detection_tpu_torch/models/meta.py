@@ -26,7 +26,9 @@ import torch
 
 from ..ops.int8_mm import int8_matmul
 from ..ops.layers import (
+    _activate,
     batchnorm_apply,
+    bn_train_activate,
     global_avgpool,
     global_maxpool,
     maxpool,
@@ -35,12 +37,12 @@ from ..ops.layers import (
 )
 from .darknet import (
     Params,
-    _activate,
     apply_conv_layer,
     apply_network,
-    bn_train_activate,
+    can_fuse_s2d_stem,
     conv2d,
     init_params,
+    run_s2d_stem,
 )
 from .quant import QMAX, act_scale_inverse, conv_int8, device_scalar, quantize_act
 from .spec import LayerSpec, NetSpec
@@ -81,6 +83,7 @@ def meta_forward(
     metain_type: int = 2,
     train: bool = False,
     remat: bool = False,
+    s2d: bool = False,
     act_scales: dict[int, float] | None = None,
     observe=None,
 ) -> tuple[list[torch.Tensor], dict]:
@@ -91,7 +94,8 @@ def meta_forward(
 
     ``act_scales``/``observe`` drive the int8 LEARNET path; keys are learnet
     layer indices. The feat_layer backbone stem, when active, stays on the
-    float path."""
+    float path. ``s2d`` runs the space-to-depth stem in the backbone stem and
+    the learnet where their first layers allow it (`can_fuse_s2d_stem`)."""
     feat_layer = spec.learnet.feat_layer
     bn_updates: dict[str, dict] = {}
     if feat_layer > 0:
@@ -103,7 +107,8 @@ def meta_forward(
         if done_split:
             metax = torch.cat([metax[..., :3], metax[..., 3:]], dim=0)
         metax, aux = apply_network(
-            spec.darknet, params["darknet"], metax, train=train, stop=feat_layer, remat=remat
+            spec.darknet, params["darknet"], metax, train=train, stop=feat_layer, remat=remat,
+            s2d_stem=s2d,
         )
         bn_updates["darknet_stem"] = aux["bn_updates"]
         if done_split:
@@ -115,7 +120,7 @@ def meta_forward(
         metax = torch.cat([metax, mask.to(metax.dtype)], dim=-1)
 
     out, aux = apply_network(spec.learnet, params["learnet"], metax, train=train, remat=remat,
-                             act_scales=act_scales, observe=observe)
+                             s2d_stem=s2d, act_scales=act_scales, observe=observe)
     bn_updates["learnet"] = aux["bn_updates"]
     return list(aux["splits"]) + [out], {"bn_updates": bn_updates}
 
@@ -293,6 +298,7 @@ def detect_forward(
     train: bool = False,
     fuse: bool = True,
     remat: bool = False,
+    s2d: bool = False,
     act_scales: dict[int, float] | None = None,
     observe=None,
 ) -> tuple[torch.Tensor, dict]:
@@ -311,17 +317,28 @@ def detect_forward(
     Tuple routes (``concat=0``, darknet_meta.py:166-168) emit ``(x1, x2)``
     unchanged; a downstream dynamic conv consumes the pair as
     (input, dynamic_weight) — the in-graph counterpart of meta_forward's
-    collected weight list.
+    collected weight list. ``s2d`` runs an eligible backbone stem in
+    space-to-depth form (`can_fuse_s2d_stem`).
     """
     dparams = params["darknet"]
     layers = spec.darknet.layers
     outputs: dict = {}
     bn_updates: dict[int, dict] = {}
 
+    start_li = 0
+    if s2d and can_fuse_s2d_stem(spec.darknet):
+        x, stats = run_s2d_stem(spec.darknet, dparams, x, train, remat)
+        if stats is not None:
+            bn_updates[0] = stats
+        outputs[1] = x
+        start_li = 2
+
     dyn_cnt = 0
     dw_cursor = 0
     skip_next = False
     for li, layer in enumerate(layers):
+        if li < start_li:
+            continue
         if skip_next:
             skip_next = False
             outputs[layer.index] = x
@@ -430,13 +447,14 @@ def forward(
     train: bool = False,
     fuse: bool = True,
     remat: bool = False,
+    s2d: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Full episodic forward (darknet_meta.py:197-201)."""
     dynamic_weights, maux = meta_forward(
-        spec, params, metax, mask, metain_type=metain_type, train=train, remat=remat
+        spec, params, metax, mask, metain_type=metain_type, train=train, remat=remat, s2d=s2d
     )
     y, daux = detect_forward(
-        spec, params, x, dynamic_weights, train=train, fuse=fuse, remat=remat
+        spec, params, x, dynamic_weights, train=train, fuse=fuse, remat=remat, s2d=s2d
     )
     return y, {
         "bn_updates": {"darknet": daux["bn_updates"], **maux["bn_updates"]},

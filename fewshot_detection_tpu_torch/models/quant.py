@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from ..ops.int8_mm import im2col, int8_matmul
-from .darknet import _activate, apply_network
+from ..ops.layers import _activate
+from .darknet import apply_network
 from .spec import LayerSpec, NetSpec
 
 QMAX = 127

@@ -13,8 +13,7 @@ A missing compiler, missing zlib headers, or a failed build raise
 `RuntimeError` with the compiler's output: the port does not fall back to
 PIL, which the machine with the card does not have. A file that does not
 decode raises `IOError` naming the file and the reason, among them the JPEG
-codings the decoder refuses (progressive, arithmetic, lossless, 12-bit,
-CMYK).
+codings that libjpeg-turbo fails on too (lossless, 12-bit, CMYK).
 
 The native path is an opt-in throughput path (`FSD_NATIVE=1`):
 interpolation is a PIL-style triangle filter, within a few uint8 counts of

@@ -1,8 +1,9 @@
-// The port's own image decoders: PNG on zlib's inflate and sequential
-// (baseline and extended, 8-bit, Huffman) JPEG. They need no system image
-// library, only zlib, and give what the JAX package's native library gets
-// from libpng (expand, strip_16, strip_alpha, gray_to_rgb) and from
-// libjpeg-turbo's default decode to RGB (ISLOW IDCT, fancy upsampling).
+// The port's own image decoders: PNG on zlib's inflate and 8-bit JPEG
+// (sequential and progressive, Huffman and arithmetic coding). They need no
+// system image library, only zlib, and give what the JAX package's native
+// library gets from libpng (expand, strip_16, strip_alpha, gray_to_rgb) and
+// from libjpeg-turbo's default decode to RGB (ISLOW IDCT as its x86 SIMD
+// code computes it, block smoothing, fancy upsampling).
 //
 // Every function is reentrant: all state lives in the caller's objects, so
 // the batch assembler may decode on many threads at once.
@@ -27,8 +28,8 @@ bool png_decode(const uint8_t* data, size_t n, Rgb8* out, std::string* err);
 bool png_size(const uint8_t* data, size_t n, int* w, int* h, std::string* err);
 bool jpeg_decode(const uint8_t* data, size_t n, Rgb8* out, std::string* err);
 // The header's dimensions, read as libjpeg's jpeg_read_header reads them:
-// a progressive or arithmetic-coded file has a size although it is not
-// decoded here.
+// a lossless or 12-bit file has none, a CMYK file has a size although it is
+// not decoded.
 bool jpeg_size(const uint8_t* data, size_t n, int* w, int* h, std::string* err);
 
 }  // namespace fsd

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,6 +42,14 @@ def bn_train_config() -> tuple[float, bool]:
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
+
+
+def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "leaky":
+        return leaky_relu(x, 0.1)
+    if activation == "relu":
+        return torch.relu(x)
+    return x
 
 
 def reorg(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
@@ -78,6 +87,82 @@ def maxpool_stride1(x: torch.Tensor) -> torch.Tensor:
     """
     x = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1), mode="replicate")
     return F.max_pool2d(x, 2, 1).permute(0, 2, 3, 1)
+
+
+def space_to_depth(x: torch.Tensor, s: int = 2) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/s, W/s, s*s*C), channel layout (v*s+u)*C + c
+    for pixel offset (v, u) inside each s x s block (the layout of `reorg`)."""
+    b, h, w, c = x.shape
+    if h % s or w % s:
+        raise ValueError(f"space_to_depth: dims {(h, w)} not divisible by {s}")
+    x = x.reshape(b, h // s, s, w // s, s, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
+
+
+def _s2d_selector() -> np.ndarray:
+    """Constant T[R,S,pi,po,a,b] mapping tap (a,b) of a 3x3 stride-1 conv
+    into tap (R,S) of the equivalent conv on space-to-depth(2) input, for
+    input phase pi=(vi,ui) and output phase po=(v,u). Output row 2i+v reads
+    input row 2i+v+dr (dr=a-1); the s2d tap (i+R-1, phase vi) holds input
+    row 2(i+R-1)+vi, so dr = 2R-2+vi-v (and likewise for columns)."""
+    t = np.zeros((3, 3, 4, 4, 3, 3), np.float32)
+    for R, S, vi, ui, v, u in np.ndindex(3, 3, 2, 2, 2, 2):
+        dr, ds = 2 * R - 2 + vi - v, 2 * S - 2 + ui - u
+        if -1 <= dr <= 1 and -1 <= ds <= 1:
+            t[R, S, vi * 2 + ui, v * 2 + u, dr + 1, ds + 1] = 1.0
+    return t
+
+
+_S2D_T = _s2d_selector()
+
+
+def s2d_stem_weight(w: torch.Tensor) -> torch.Tensor:
+    """Lift a (K, C, 3, 3) stride-1 conv weight (OIHW) to the equivalent
+    (4K, 4C, 3, 3) weight on space-to-depth(2) input, where output channel
+    block po holds the conv result at pixel phase po of the original grid.
+    An einsum with the constant 0/1 selector (each tap takes one weight or
+    none, so it is exact), through which gradients reach the 3x3 weight."""
+    k, c, kh, kw = w.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError("s2d stem expects a 3x3 kernel")
+    t = torch.as_tensor(_S2D_T, dtype=w.dtype, device=w.device)
+    return torch.einsum("RSpqab,kcab->qkpcRS", t, w).reshape(4 * k, 4 * c, 3, 3)
+
+
+def stem_s2d_conv_pool(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bn: dict | None,
+    activation: str,
+    bias: torch.Tensor | None,
+    train: bool,
+    remat: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
+    """conv3x3(s1,p1) + [BN] + [activation] + maxpool(2,2) on (B, H, W, C),
+    computed as a conv on the space-to-depth input whose output holds the
+    four pool-window phases as channel blocks, (B, H/2, W/2, 4, K). BN
+    normalises per original channel over the phase axis too (training BN
+    reaches `bn_sums` at M = B*H*W, C = K, as the plain stem's conv output
+    does), and the pool is the max over the phase axis. The same function as
+    the plain stem, reassociated. In eager PyTorch the 5-D conv output has
+    as many elements as the plain stem's, so it saves no activation memory;
+    it exists for parity with the JAX package's `s2d` option."""
+    b, h, wd, _ = x.shape
+    k = w.shape[0]
+    xs = space_to_depth(x, 2)
+    ws = s2d_stem_weight(w)
+    y = F.conv2d(xs.permute(0, 3, 1, 2), ws.to(xs.dtype), None, 1, 1).permute(0, 2, 3, 1)
+    y = y.reshape(b, h // 2, wd // 2, 4, k)
+    new_stats = None
+    if bn is not None and train:
+        y, new_stats = bn_train_activate(y, bn, activation, remat)
+    else:
+        if bn is not None:
+            y = batchnorm_apply(y, bn)
+        elif bias is not None:
+            y = y + bias.to(y.dtype)
+        y = _activate(y, activation)
+    return torch.amax(y, dim=3), new_stats
 
 
 def global_maxpool(x: torch.Tensor) -> torch.Tensor:
@@ -132,3 +217,27 @@ def batchnorm_train(x: torch.Tensor, bn: dict) -> tuple[torch.Tensor, dict]:
     or the darknet extension's with FSD_BN_DARKNET=1)."""
     inv, bias, new_stats = bn_train_affine(x, bn)
     return bn_normalize(x, inv, bias), new_stats
+
+
+def _normalize_activate(y, inv, bias, activation: str) -> torch.Tensor:
+    return _activate(bn_normalize(y, inv, bias), activation)
+
+
+def bn_train_activate(
+    y: torch.Tensor, bn: dict, activation: str, remat: bool = False
+) -> tuple[torch.Tensor, dict]:
+    """Training BN + activation on a conv output; returns (out, new stats).
+
+    ``remat=True`` keeps the conv output and the batch statistics and
+    recomputes only the normalize/activation epilogue in the backward (the
+    tensors the JAX trainer's rematerialization policy saves). The
+    statistics stay outside the checkpointed function: recomputing them
+    would launch the `bn_sums` kernel once more over the whole conv output."""
+    inv, bias, new_stats = bn_train_affine(y, bn)
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        out = checkpoint(_normalize_activate, y, inv, bias, activation, use_reentrant=False)
+    else:
+        out = _normalize_activate(y, inv, bias, activation)
+    return out, new_stats

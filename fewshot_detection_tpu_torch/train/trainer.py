@@ -155,6 +155,7 @@ class MetaTrainer(_GroupTrainer):
         metain_type: int = 2,
         fuse: bool = True,
         remat: bool = False,
+        s2d: bool = False,
         clip_norm: float = 0.0,
         image_dtype: torch.dtype = torch.float32,
         warmup_seen: int = 12800,
@@ -167,6 +168,9 @@ class MetaTrainer(_GroupTrainer):
         self.region = spec.region
         self.metain_type = metain_type
         self.fuse = fuse
+        # the space-to-depth stem where a network's first layers allow it
+        # (models/darknet.py:can_fuse_s2d_stem)
+        self.s2d = s2d
 
     def _episode_loss(self, params, x, metax, mask, target, keep, seen):
         x, metax, mask = _decode_images((x, metax, mask), self.image_dtype)
@@ -174,6 +178,7 @@ class MetaTrainer(_GroupTrainer):
         y, aux = meta_mod.forward(
             self.spec, params, x, metax, mask,
             metain_type=self.metain_type, train=True, fuse=self.fuse, remat=self.remat,
+            s2d=self.s2d,
         )
         loss, metrics = region_loss_v2(
             y, target, keep, seen, self.region, n_cls, warmup_seen=self.warmup_seen
@@ -226,18 +231,18 @@ class PlainTrainer(_GroupTrainer):
         warmup_seen: int = 12800,
         device="cuda",
     ):
-        if s2d:
-            raise NotImplementedError("the space-to-depth stem (s2d=True) is not ported yet")
         super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
                          clip_norm=clip_norm, image_dtype=image_dtype,
                          warmup_seen=warmup_seen, device=device)
         self.spec = spec
         self.region = spec.region
         self.zero_tcls = zero_tcls
+        self.s2d = s2d
 
     def _episode_loss(self, params, x, target, keep, seen):
         (x,) = _decode_images((x,), self.image_dtype)
-        y, aux = apply_network(self.spec, params, x, train=True, remat=self.remat)
+        y, aux = apply_network(self.spec, params, x, train=True, remat=self.remat,
+                               s2d_stem=self.s2d)
         loss, metrics = region_loss(
             y, target, keep, seen, self.region, zero_tcls=self.zero_tcls,
             warmup_seen=self.warmup_seen,

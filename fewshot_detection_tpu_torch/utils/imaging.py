@@ -23,7 +23,13 @@ def get_image_size(fname: str) -> tuple[int, int]:
 
 
 def load_image_resized(fname: str, width: int, height: int) -> np.ndarray:
-    """float32 HWC [0,1] resized input (reference detect.py:26-27 semantics)."""
+    """float32 HWC [0,1] resized input (reference detect.py:26-27 semantics):
+    PIL's resize, or under FSD_NATIVE=1 the native pipeline's (no PIL
+    needed; a triangle filter, within a few uint8 counts of PIL's)."""
+    if os.environ.get("FSD_NATIVE", "0") == "1":
+        from ..native import NativeImagePipe
+
+        return NativeImagePipe().load_plain(fname, width, height)
     from PIL import Image
 
     img = Image.open(fname).convert("RGB")

@@ -10,14 +10,19 @@ that reach the decoder's corners: every chroma subsampling PIL writes and
 (a downsampled width of 2), non-interleaved scans, other sampling factors,
 an MCU of more than 10 blocks (which libjpeg refuses),
 RGB without a colour transform, the standard Huffman tables left out, a
-truncated file, and the codings the port's decoder refuses (progressive,
-arithmetic, lossless, 12-bit, CMYK).
+truncated file, progressive and arithmetic coding (PIL's progressive files
+and lossless transcodes by `tests/jpeg_transcode.py`: SOF2 with restarts and
+scan scripts that leave the coefficients incomplete, so that libjpeg's block
+smoothing runs; SOF9 and SOF10 with restarts and with DAC conditioning;
+400x300 progressive and arithmetic transcodes of predictions.jpg, for the
+decode rates), and the codings libjpeg fails on too (lossless, 12-bit, CMYK).
 
 manifest.json holds, for each file (and the repo's predictions.jpg): its
 `size` as jpeg_read_header reads it (null where that fails), `jax`: the
 SHA-256 of the JAX library's RGB decode (or "fails"), and `port`: the
 same digest where the port must decode bit-equal, or "refused" with the
-`reason` its error must name."""
+`reason` its error must name. `arithmetic.jpg` is Huffman data under an
+SOF9 marker: libjpeg decodes it as arithmetic data, and so must the port."""
 
 import hashlib
 import io
@@ -32,6 +37,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
 
+from jpeg_transcode import transcode, with_dac  # noqa: E402
 from torch_image_writers import jpeg_bytes, rgb_to_ycc_planes  # noqa: E402
 
 
@@ -111,6 +117,29 @@ def fixtures():
     whole = pil(scene(rng, 64, 48), quality=80, subsampling=2)
     files["truncated_420.jpg"] = whole[:len(whole) * 3 // 5]
     files["progressive.jpg"] = pil(a, quality=75, progressive=True)
+    files["progressive_444_optimized.jpg"] = pil(a, quality=80, subsampling=0, progressive=True,
+                                                 optimize=True)
+    files["progressive_422_restart.jpg"] = pil(a, quality=75, subsampling=1, progressive=True,
+                                               restart_marker_blocks=2)
+    base = files["q50_420.jpg"]
+    # DC only: smoothing estimates coefficients 1..9 and the DC itself
+    files["progressive_dc_only.jpg"] = transcode(base, script="0,1,2:0:0:0:1")
+    # the last AC scans at Al = 1: smoothing fills the still-zero ones
+    files["progressive_al1_end.jpg"] = transcode(
+        base, script="0,1,2:0:0:0:0;0:1:5:0:2;0:6:63:0:1;1:1:63:0:1;2:1:63:0:1;0:1:5:2:1")
+    # cut in its last scan: the rows past the cut smooth as before that scan
+    whole = transcode(files["q95_422.jpg"], progressive=True, restart=3)
+    files["progressive_truncated.jpg"] = whole[:len(whole) * 4 // 5]
+    files["arithmetic_restart.jpg"] = transcode(files["q50_422.jpg"], arith=True, restart=2)
+    files["arithmetic_dac.jpg"] = with_dac(transcode(files["q50_444.jpg"], arith=True),
+                                           [(0, 0x31), (1, 0x20), (16, 2), (17, 0x3f)])
+    files["sof10.jpg"] = transcode(files["q50_420.jpg"], arith=True, progressive=True)
+    files["sof10_restart_gray.jpg"] = transcode(files["gray.jpg"], arith=True, restart=1,
+                                                script="0:0:0:0:1;0:1:5:0:2;0:6:63:0:0;0:1:5:2:1;0:0:0:1:0")
+    with open(os.path.join(REPO, "predictions.jpg"), "rb") as f:
+        photo = f.read()
+    files["predictions_progressive.jpg"] = transcode(photo, progressive=True)
+    files["predictions_arithmetic.jpg"] = transcode(photo, arith=True)
     files["arithmetic.jpg"] = with_sof(pil(a, quality=75), 0xC9)
     files["lossless.jpg"] = with_sof(pil(a, quality=75), 0xC3)
     files["precision12.jpg"] = with_sof(pil(a, quality=75), 0xC1, precision=12)
@@ -121,9 +150,7 @@ def fixtures():
     return files
 
 
-REFUSED = {"progressive.jpg": "progressive", "arithmetic.jpg": "arithmetic",
-           "lossless.jpg": "lossless", "precision12.jpg": "precision",
-           "cmyk.jpg": "CMYK"}
+REFUSED = {"lossless.jpg": "lossless", "precision12.jpg": "precision", "cmyk.jpg": "CMYK"}
 
 
 def digest(arr) -> str:

@@ -15,8 +15,8 @@ PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 
 ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.py",
                 "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
-                "train_torch.py", "partial_torch.py", "scripts/full_workflow_torch.py",
-                "scripts/int8_map_torch.py")
+                "train_torch.py", "partial_torch.py", "debug_torch.py", "demo_torch.py",
+                "scripts/full_workflow_torch.py", "scripts/int8_map_torch.py")
 TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref", "tests")
 
 

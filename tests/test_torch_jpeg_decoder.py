@@ -1,29 +1,30 @@
-"""The port's own baseline-JPEG decoder (`native/src/jpegdec.cpp`) against
-the JAX package's native library, which decodes with the system's
-libjpeg-turbo (2.1.5 here) to RGB with its defaults.
+"""The port's own JPEG decoder (`native/src/jpegdec.cpp`) against the JAX
+package's native library, which decodes with the system's libjpeg-turbo
+(2.1.5 here) to RGB with its defaults.
 
 - The committed fixtures (`tests/data_torch/jpeg/`, written by
   `make_fixtures.py`) and the repo's `predictions.jpg`: the manifest's
   digests are checked against the JAX library here, so they cannot go
   stale, and the port's decode is BIT-EQUAL to the JAX library's on every
-  file it decodes; `image_size` is equal on every file, progressive
-  included; the codings the port does not implement are refused with an
-  error that names the file and the reason.
+  file the library decodes, progressive and arithmetic-coded included;
+  `image_size` is equal on every file; what the library fails on too
+  (lossless, 12-bit, CMYK) is refused with an error that names the file and
+  the reason. Progressive and arithmetic coding have files of their own in
+  test_torch_jpeg_progressive.py and test_torch_jpeg_arith.py.
 - JPEGs that PIL writes from a seed over subsampling, quality, size,
   optimised tables and restart intervals, and JPEGs of the tests' own
   writer over sampling factors (4:2:0 and 4:2:2 at widths and heights of 1,
   2, 3, 17 and 33, box upsampling at a downsampled width of 2, 3:1, 4:1,
   4:4:0, non-interleaved scans): bit-equal.
-- Truncated and corrupted files: the same decision (decode or fail) as the
-  JAX library, and the same pixels as libjpeg-turbo's C code path.
+- Truncated and corrupted files: the same decision (decode or fail) and the
+  same pixels as the JAX library.
 
-One difference remains, on coefficients no encoder writes: where an IDCT
-output falls outside [-512, 511], libjpeg's C IDCT wraps it through its
-range-limit table (& RANGE_MASK), and so does the port, while libjpeg-turbo's
-x86 SIMD IDCT, which the JAX library runs by default on this CPU, saturates
-it. The port is held to the C path there (the JAX library run with
-JSIMD_FORCENONE=1 in a child process), and the test pins that the SIMD path
-differs.
+On coefficients no encoder writes, where an IDCT output falls outside
+[-512, 511], libjpeg's C IDCT wraps it through its range-limit table
+(& RANGE_MASK), while libjpeg-turbo's x86 SIMD IDCT, which the JAX library
+runs by default, saturates it. The port computes as the SIMD code does and
+equals the JAX library's default decode there; the C path (the JAX library
+run with JSIMD_FORCENONE=1 in a child process) is pinned to differ.
 
 PIL bundles its own libjpeg-turbo; it is used here to write files, never
 as the reference."""
@@ -81,8 +82,12 @@ def assert_same(pipes, path):
 def test_manifest_covers_the_fixtures():
     on_disk = {f for f in os.listdir(FIXTURES) if f.endswith(".jpg")}
     assert on_disk | {"predictions.jpg"} == set(MANIFEST)
-    assert sum(os.path.getsize(os.path.join(REPO, e["path"])) for e in MANIFEST.values()
-               if e["path"] != "predictions.jpg") < 150_000
+    sizes = {name: os.path.getsize(os.path.join(REPO, e["path"])) for name, e in MANIFEST.items()}
+    # the small fixtures, and the two 400x300 transcodes of predictions.jpg
+    # that the card's smoke test times the decoder on
+    photo = {"predictions.jpg", "predictions_progressive.jpg", "predictions_arithmetic.jpg"}
+    assert sum(v for k, v in sizes.items() if k not in photo) < 150_000
+    assert sum(v for k, v in sizes.items() if k in photo - {"predictions.jpg"}) < 150_000
 
 
 @pytest.mark.parametrize("name", sorted(MANIFEST))
@@ -108,16 +113,17 @@ def test_fixture_against_manifest_and_jax(pipes, name):
 
 
 def test_progressive_is_refused_but_sized(pipes):
+    """Progressive and arithmetic-coded files, refused before, are now
+    decoded EQUAL to the JAX library and sized as it sizes them, through
+    every method that reads a file."""
     t, j = pipes
-    path = os.path.join(FIXTURES, "progressive.jpg")
-    assert t.image_size(path) == j.image_size(path) == Image.open(path).size
-    with pytest.raises(IOError, match="progressive") as e:
-        t.decode(path)
-    assert path in str(e.value)
-    for fn in (lambda: t.load_plain(path, 16, 16),
-               lambda: t.load_augment(path, 16, 16, 0, 0, 0, 0, 0, 0.0, 1.0, 1.0)):
-        with pytest.raises(IOError, match=f"{path}: progressive"):
-            fn()
+    for name in ("progressive.jpg", "arithmetic.jpg", "sof10.jpg"):
+        path = os.path.join(FIXTURES, name)
+        assert t.image_size(path) == j.image_size(path) == Image.open(path).size
+        np.testing.assert_array_equal(t.decode(path), j.decode(path))
+        np.testing.assert_array_equal(t.load_plain(path, 16, 16), j.load_plain(path, 16, 16))
+        args = (16, 16, 1, 0, 2, 1, 1, 0.1, 1.2, 0.9)
+        np.testing.assert_array_equal(t.load_augment(path, *args), j.load_augment(path, *args))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -190,6 +196,9 @@ def c_path_digests(paths):
 
 
 def test_out_of_range_idct_wraps_as_libjpegs_c_path(pipes, tmp_path):
+    """Coefficients whose IDCT leaves [-512, 511]: the port equals the JAX
+    library's default decode (libjpeg-turbo's SIMD IDCT, which saturates);
+    libjpeg's C path, which wraps, differs on them."""
     t, j = pipes
     rng = np.random.RandomState(7)
     paths = []
@@ -201,11 +210,10 @@ def test_out_of_range_idct_wraps_as_libjpegs_c_path(pipes, tmp_path):
             f.write(jpeg_bytes(coefs=[coef], size=(16, 16), sampling=((1, 1),),
                                quant=[np.full(64, 1 + i % 4)], marker=None))
         paths.append(path)
-    want = c_path_digests(paths)
     got = [sha(t.decode(p)) for p in paths]
-    assert got == want
-    # the SIMD path saturates instead: the known difference (ROADMAP Queue 3)
-    assert sum(sha(j.decode(p)) != g for p, g in zip(paths, got)) > 0
+    assert got == [sha(j.decode(p)) for p in paths]
+    # the C path wraps instead
+    assert sum(c != g for c, g in zip(c_path_digests(paths), got)) > 0
 
 
 def test_truncated_and_corrupt_files_decide_like_jax(pipes, tmp_path):
@@ -229,13 +237,8 @@ def test_truncated_and_corrupt_files_decide_like_jax(pipes, tmp_path):
         with open(path, "wb") as f:
             f.write(data)
         paths.append(path)
-    want = c_path_digests(paths)
-    for path, c_digest in zip(paths, want):
-        (ts, tarr), (js, jarr) = outcome(t, path), outcome(j, path)
-        assert ts == js, path
-        assert isinstance(tarr, IOError) == isinstance(jarr, IOError) == (c_digest is None), path
-        if c_digest is not None:
-            assert sha(tarr) == c_digest, path
+    for path in paths:
+        assert_same(pipes, path)
 
 
 def test_batch_assembler_on_fixtures_with_threads_equals_jax(pipes):

@@ -223,5 +223,15 @@ def test_uint8_and_bfloat16_inputs(tiny):
 
 
 def test_space_to_depth_stem_is_refused(tiny):
-    with pytest.raises(NotImplementedError, match="s2d"):
-        PlainTrainer(tiny[0], s2d=True, device="cpu")
+    """No longer refused: `s2d=True` runs the space-to-depth stem, and a
+    step equals the JAX trainer's `s2d=True` step (the bounds of the steps
+    above; more in tests/test_torch_s2d_stem.py)."""
+    spec, jspec, params, mom = tiny
+    tp, tmom = _torch_state(spec, params, mom)
+    jp, jmom = to_jnp_tree(params), to_jnp_tree(mom)
+    batch = _batch(70, R=1, b=2)
+    _, _, m = PlainTrainer(spec, s2d=True, device="cpu").step(tp, tmom, batch, 20002, 1e-3)
+    jp, jmom, jmet = JPlainTrainer(jspec, s2d=True, donate=False).step(
+        jp, jmom, batch, 20002, 1e-3)
+    _assert_metrics_close(m, jmet)
+    _assert_state_close(spec, tp, tmom, jp, jmom)
