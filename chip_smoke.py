@@ -111,7 +111,10 @@ phases, each printing JSON lines:
            and images/s, one thread) and the pthread batch assembler's
            images/s (64 images decoded, augmented and resized to 416), for
            VOC-sized PNGs, predictions.jpg, and its progressive and
-           arithmetic transcodes
+           arithmetic transcodes; load_image_resized(predictions.jpg, 416,
+           416) under FSD_NATIVE=1 (the port's decode, then its copy of PIL's
+           default bicubic resize) against the committed SHA-256 of the JAX
+           package's output (tests/data_torch/resize_digests.json)
   ckpt     full-state checkpoints of the meta step (the `train` phase's
            cfgs, checkpoint, batch 64, 15-way, bfloat16): 2 steps, a
            synchronous save, an async save (FSD_ASYNC_CKPT=1) with a step
@@ -140,8 +143,29 @@ phases, each printing JSON lines:
            says (listed as `reduced`); each stage's seconds, steps, first and
            last loss and bn_sums / nms_rows launches, and the two mAPs (numbers
            for synthetic data, not a quality claim)
+  dp       data parallelism over torch.distributed (parallel/mesh.py) on the
+           card's one H100: the `train` phase's meta step at batch 64, 416 px,
+           float32 (TF32 off) split into R = 2 replica groups of 32, first in
+           this process with no mesh; then a world of one under NCCL (a
+           spawned rank, both groups on it, through the mesh): its loss and
+           the norms of each leaf's update and of the whole tree's against the
+           one-process step within the first-step check's bounds for two
+           float32 answers, the collectives a step (counted in the mesh),
+           58 + 58 bn_sums launches, images/s with and without the mesh; then
+           a world of two under gloo with both ranks on cuda:0 (NCCL refuses
+           two ranks on one device; gloo's collectives go through host
+           copies), one group a rank: the meta step and a PlainTrainer step
+           (cfg/yolo-voc.cfg, seeded weights), both ranks' trees bit-equal and
+           within the same bounds of the one-process step, each rank's peak
+           memory; and in that world run_valid_ensemble under
+           FSD_EVAL_MESH=2 (the serve cfgs and checkpoint, 16 painted PNGs at
+           batch 5, so every batch is padded) with nms_rows launched on both
+           ranks and result files line-equal to this process's sweep. Each
+           world is joined within DP_WORLD_SECONDS; a rank that fails or runs
+           past it fails the phase
   path_inputs  every path above (serve, plain_serve, int8_serve, train,
-           plain_train, ckpt, files, workflow) runs with its kernel inputs recorded
+           plain_train, ckpt, files, workflow, dp: the ranks' inputs too) runs
+           with its kernel inputs recorded
            (`PathInputs`, no launch of its own); afterwards each kernel is
            held against its plain version there, as in `kernels`: bn_sums at
            every distinct (M, C, dtype) a path launched, the workflow's
@@ -162,6 +186,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -222,6 +247,7 @@ from fewshot_detection_tpu_torch.ops import int8_mm
 from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes, get_region_boxes_v2, nms
 from fewshot_detection_tpu_torch.ops.int8_mm import int8_matmul, int8_matmul_reference
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
+from fewshot_detection_tpu_torch.parallel import shard_batch
 from fewshot_detection_tpu_torch.train import MetaTrainer, PlainTrainer, init_momentum
 from fewshot_detection_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -231,6 +257,7 @@ from fewshot_detection_tpu_torch.train.checkpoint import (
 )
 from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path, tree_map
 from fewshot_detection_tpu_torch.utils import format_loss_line
+from fewshot_detection_tpu_torch.utils.imaging import load_image_resized
 from fewshot_detection_tpu_torch.utils.profiling import WARMUP_KERNEL, trace, warm_up_cuda_trace
 from fewshot_detection_tpu_torch.utils.trace_summary import find_trace_files, load_events, summarize
 
@@ -941,10 +968,12 @@ def phase_serve(seed: int, n_batches: int, outdir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def make_episode(seed: int, batch_size: int, n_cls: int, size: int, dtype_name: str) -> dict:
+def make_episode(seed: int, batch_size: int, n_cls: int, size: int, dtype_name: str,
+                 groups: int = 1) -> dict:
     """One episode painted from the seed, through the CLI's own batch maker:
     `batch_size` detection images whose first rectangle is the object of
-    class i % n_cls, and one support image + box mask per class. The
+    class i % n_cls, split into `groups` replica groups, and one support
+    image + box mask per class and group. The
     backgrounds are noisy: on flat ones most channels of the trained
     checkpoint are nearly constant, their variance is the small difference
     of two large numbers, and gradients then follow the last bit of the
@@ -954,9 +983,11 @@ def make_episode(seed: int, batch_size: int, n_cls: int, size: int, dtype_name: 
     labels = np.zeros((batch_size, n_cls, 50, 5), np.float32)
     for i, box in enumerate(first):
         labels[i, i % n_cls, 0] = (i % n_cls, *box)
-    support = make_support_set(rng, range(n_cls), 1, size, "noise")
+    supports = [make_support_set(rng, range(n_cls), 1, size, "noise") for _ in range(groups)]
     return make_episode_batch(
-        imgs, labels.reshape(batch_size, n_cls, 250), support.metax, support.masks, 1,
+        imgs, labels.reshape(batch_size, n_cls, 250),
+        np.concatenate([sup.metax for sup in supports]),
+        np.concatenate([sup.masks for sup in supports]), groups,
         TRAIN_NEG_RATIO, np.random.RandomState(seed), dtype=dtype_name)
 
 
@@ -1923,7 +1954,7 @@ def int8_plain(seed: int) -> list:
     return out
 
 
-def make_plain_episode(seed: int, batch_size: int, dtype_name: str) -> dict:
+def make_plain_episode(seed: int, batch_size: int, dtype_name: str, groups: int = 1) -> dict:
     """One batch for PlainTrainer painted from the seed through the CLI's own
     batch maker: noisy backgrounds (see make_episode), the first rectangle of
     image i labelled as class i % 20, every image kept (cfg/voc.data has no
@@ -1932,7 +1963,7 @@ def make_plain_episode(seed: int, batch_size: int, dtype_name: str) -> dict:
     labels = np.zeros((batch_size, 50, 5), np.float32)
     labels[:, 0, 0] = np.arange(batch_size) % 20
     labels[:, 0, 1:] = first
-    return make_plain_batch(imgs, labels.reshape(batch_size, 250), 1, "full", None,
+    return make_plain_batch(imgs, labels.reshape(batch_size, 250), groups, "full", None,
                             dtype=dtype_name)
 
 
@@ -2166,8 +2197,6 @@ JPEG_FIXTURES = os.path.join(REPO, "tests", "data_torch", "jpeg")
 
 
 def sha256_rgb(arr: np.ndarray) -> str:
-    import hashlib
-
     return hashlib.sha256(np.ascontiguousarray(arr, np.uint8).tobytes()).hexdigest()
 
 
@@ -2200,6 +2229,32 @@ def check_jpeg_fixtures(pipe) -> dict:
         check(sha256_rgb(pipe.decode(path)) == entry["port"], f"{name}: decode digest")
         outcome["decoded"] += 1
     return outcome
+
+
+RESIZE_DIGESTS = os.path.join(REPO, "tests", "data_torch", "resize_digests.json")
+
+
+def check_pil_resize() -> dict:
+    """load_image_resized under FSD_NATIVE=1 (the port's decoder, then its
+    copy of PIL's default bicubic resize, native/src/resize.cpp) against the
+    committed SHA-256 of the JAX package's output (PIL's decode and resize)
+    on the same file."""
+    with open(RESIZE_DIGESTS) as f:
+        digests = json.load(f)
+    old = os.environ.get("FSD_NATIVE")
+    os.environ["FSD_NATIVE"] = "1"
+    try:
+        for name, entry in digests.items():
+            img = load_image_resized(os.path.join(REPO, name), *entry["size"])
+            got = hashlib.sha256(np.ascontiguousarray(img, np.float32).tobytes()).hexdigest()
+            check(got == entry["float32_sha256"],
+                  f"load_image_resized({name}, {entry['size']}) is not the JAX package's")
+    finally:
+        if old is None:
+            os.environ.pop("FSD_NATIVE")
+        else:
+            os.environ["FSD_NATIVE"] = old
+    return {"files": sorted(digests), "equal_to_jax_digest": len(digests)}
 
 
 def decode_rates(pipe, paths: list, params: np.ndarray) -> dict:
@@ -2265,7 +2320,7 @@ def phase_native(seed: int, smi: str) -> dict:
                           f"filters {filters}: not libpng's pixels")
                     matrix += 1
         report.update(png_cases_bit_equal=len(cases), png_matrix_bit_equal=matrix,
-                      jpeg_fixtures=check_jpeg_fixtures(pipe))
+                      jpeg_fixtures=check_jpeg_fixtures(pipe), pil_resize=check_pil_resize())
         # rates: 64 VOC-sized painted PNGs, 64 copies of predictions.jpg and
         # of each of its two transcodes
         pngs, raws = [], []
@@ -2664,6 +2719,405 @@ def phase_workflow(smi: str) -> dict:
             "nms": {"launches": totals["nms"]}}
 
 
+# ---------------------------------------------------------------------------
+# dp: data parallelism over torch.distributed (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+# The card's host has one H100, so the worlds run on it: a world of one under
+# NCCL (its own process), and a world of two under gloo with both ranks on
+# cuda:0 (NCCL refuses two ranks on one device; gloo's collectives are staged
+# through host copies). Each world is a set of spawned processes joined with
+# DP_WORLD_SECONDS; a rank that fails or runs past it fails the phase.
+DP_WORLD_SECONDS = 300
+# world: (ranks, backend, the device every rank computes on)
+DP_WORLDS = {"nccl1": (1, "nccl", "cuda"), "gloo2": (2, "gloo", "cuda:0")}
+DP_GROUPS = 2
+DP_TIMED_STEPS = 3
+DP_SWEEP_IMAGES = 16
+DP_SUPPORT_IMAGES = 40
+DP_SWEEP_BATCH = 5  # 16 = 5 + 5 + 5 + 1: every batch padded to a multiple of 2 ranks
+# result files of the sharded sweep against one process's: the same rows,
+# each probability within DP_FILES_TOL of its value (relative: the bound the
+# repo holds result files to, tests/test_torch_plain_valid.py) and each
+# corner within DP_FILES_PX pixels plus DP_FILES_TOL of its value. A rank
+# runs a block of 3 or 1 images where one process runs 5, and cuDNN rounds
+# another batch size otherwise: a float32 step (about 1e-6 of a box's
+# normalised coordinate) is a few 1e-4 px on a corner of a few hundred px,
+# which may lie near 0 (on the H100, 2.1e-4 px at -0.76 px)
+DP_FILES_TOL = 1e-4
+DP_FILES_PX = 1e-3
+
+
+def dp_meta(seed: int):
+    """The `train` phase's meta step at the cfg's batch 64 in float32 (TF32
+    off), split into DP_GROUPS replica groups of 32: (batch, seen, lr,
+    make_trainer(mesh), load_params)."""
+    dblocks, lblocks = parse_cfg(DARKNET_CFG), parse_cfg(LEARNET_CFG)
+    spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
+    sched = schedule_from_cfg(dblocks[0], TRAIN_NEG_RATIO, TRAIN_N_CLS)
+    batch = make_episode(seed, sched.batch_size, TRAIN_N_CLS, 416, "float32", DP_GROUPS)
+
+    def make_trainer(mesh):
+        return MetaTrainer(spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
+                           metain_type=2, image_dtype=torch.float32, warmup_seen=12800,
+                           device=mesh.device if mesh else DEVICE, mesh=mesh)
+
+    return (batch, SEEN + sched.batch_size, sched.lr(SEEN // sched.batch_size), make_trainer,
+            lambda: load_train_state(spec)[0])
+
+
+def dp_plain(seed: int):
+    """PlainTrainer on cfg/yolo-voc.cfg from the seeded weights, batch 64 in
+    DP_GROUPS groups, float32: as `dp_meta`."""
+    setup = PlainTrainSetup(seed)
+    batch = make_plain_episode(seed + 100, setup.sched.batch_size, "float32", DP_GROUPS)
+
+    def make_trainer(mesh):
+        return PlainTrainer(setup.spec, momentum=setup.sched.momentum,
+                            weight_decay=setup.sched.weight_decay, image_dtype=torch.float32,
+                            device=mesh.device if mesh else DEVICE, mesh=mesh)
+
+    return batch, setup.sched.batch_size, setup.sched.lr(0), make_trainer, setup.load_params
+
+
+def dp_step(setup, mesh=None, timed: int = 0) -> dict:
+    """One step of `setup` (dp_meta / dp_plain) from fresh parameters, with
+    this rank's groups when there is a mesh: its loss, the norm of each
+    leaf's update and of the whole tree's, a digest of the parameters and
+    momentum after it, the bn_sums launches and collectives of the step
+    (counts set to 0 just before, read just after), peak memory; then
+    `timed` more steps after one warm-up, for images/s."""
+    batch, seen, lr, make_trainer, load_params = setup
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    params = load_params()
+    start = {p: t.detach().clone() for p, t in tree_leaves_with_path(params)}
+    mom = init_momentum(params)
+    trainer = make_trainer(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives = mesh.collectives if mesh else 0
+    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    params, mom, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = [bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies]
+    collectives = (mesh.collectives if mesh else 0) - collectives
+    norms = {p: float((t.detach() - start[p]).double().norm())
+             for p, t in tree_leaves_with_path(params)}
+    digest = hashlib.sha256()
+    for tree in (params, mom):
+        for _, t in tree_leaves_with_path(tree):
+            digest.update(t.detach().cpu().numpy().tobytes())
+    report = {"loss": loss, "norms": norms, "all": sum(v * v for v in norms.values()) ** 0.5,
+              "digest": digest.hexdigest(), "launches": launches, "collectives": collectives,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "groups": int(batch["x"].shape[0]), "images": int(np.prod(batch["x"].shape[:2]))}
+    if timed:
+        trainer.step(params, mom, batch, seen=seen, lr=lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            _, _, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
+            float(metrics["loss"])  # the step's one host sync, as in the main path
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        world = mesh.size if mesh else 1
+        report["images_per_s"] = timed * report["images"] * world / seconds
+    del params, mom, start, trainer
+    torch.cuda.empty_cache()
+    return report
+
+
+def dp_sweep_files(root: str, data_options, settings, tag: str, env: dict) -> tuple:
+    """run_valid_ensemble on the serve phase's cfgs and checkpoint over the
+    painted list at DP_SWEEP_BATCH, as valid_ensemble_torch.py runs it (under
+    `env`), the NMS count set to 0 just before and read just after: (the
+    result files' lines, on the rank that writes them, else None; launches)."""
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        nms_rows.launches = 0
+        printed = run_cli(lambda: valid.run_valid_ensemble(
+            data_options, DARKNET_CFG, LEARNET_CFG, WEIGHTS, settings, outfile=tag,
+            batch_size=DP_SWEEP_BATCH, device=DEVICE), env)
+        torch.cuda.synchronize()
+        launches = nms_rows.launches
+        if "saving to: " not in printed:
+            return None, launches
+        prefix = os.path.join(root, printed.split("saving to: ", 1)[1].split()[0])
+        files = {}
+        for name in VOC_CLASSES:
+            with open(os.path.join(prefix, f"{tag}{name}.txt")) as f:
+                files[name] = f.read().splitlines()
+        return files, launches
+    finally:
+        os.chdir(cwd)
+
+
+def dp_sweep_inputs(root: str, seed: int | None = None):
+    """(data options, settings) of DP_SWEEP_IMAGES images of the workflow's
+    synthetic style as PNG files, with the support list of DP_SUPPORT_IMAGES
+    (data/synth.py), read through the native decoders; painted under `root`
+    when a seed is given, else those painted there before."""
+    datacfg = os.path.join(root, "dp.data")
+    if seed is None:
+        data_options, _, _, settings = resolve_configs(datacfg, DARKNET_CFG, LEARNET_CFG)
+        return data_options, settings
+    # the support list needs every class: paint more, sweep the first 16
+    d = make_voc_like(os.path.join(root, "voc"), n_images=DP_SUPPORT_IMAGES,
+                      size=INT8_IMG_SIZE, seed=seed, style="huebin", box_range=(0.15, 0.45))
+    valid_list = os.path.join(root, "dp_valid.txt")
+    with open(d["train_list"]) as src, open(valid_list, "w") as dst:
+        dst.writelines(src.readlines()[:DP_SWEEP_IMAGES])
+    with open(datacfg, "w") as f:
+        f.write("metayolo=1\nmetain_type=2\ndata=voc\nneg=1\nrand=0\n"
+                f"novel={REPO}/data/voc_novels.txt\nnovelid=0\n"
+                f"meta={d['traindict']}\ntrain={d['train_list']}\n"
+                f"valid={valid_list}\nbackup={root}/backup\ngpus=0\n")
+    data_options, _, _, settings = resolve_configs(datacfg, DARKNET_CFG, LEARNET_CFG)
+    return data_options, settings
+
+
+DP_SWEEP_ENV = {"FSD_NATIVE": "1", "FSD_DEVICE_NMS_K": str(PLAIN_TOP_K)}
+
+
+def dp_rank(world: str, env: dict, seed: int, root: str) -> None:
+    """One rank of world `world` ("nccl1": a world of one under NCCL, R = 2
+    groups on the rank, timed; "gloo2": a world of two under gloo on cuda:0,
+    one group a rank, the meta and plain steps and the sharded sweep). Runs
+    in a spawned process; writes its report, or its traceback, under `root`."""
+    import pickle
+    import traceback
+
+    rank = int(env["RANK"])
+    out = os.path.join(root, f"{world}_{rank}")
+    try:
+        os.environ.update(env)
+        valid.set_float32_precision(tf32=False)
+        from fewshot_detection_tpu_torch.parallel import make_mesh
+
+        n, backend, device = DP_WORLDS[world]
+        mesh = make_mesh(n, device=device, backend=backend)
+        report = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+                  "device": str(mesh.device)}
+        with PathInputs() as rec:
+            report["meta"] = dp_step(dp_meta(seed), mesh, DP_TIMED_STEPS if world == "nccl1" else 0)
+            if world == "gloo2":
+                report["plain"] = dp_step(dp_plain(seed), mesh)
+                data_options, settings = dp_sweep_inputs(root)  # the parent painted them
+                files, launches = dp_sweep_files(root, data_options, settings, "dp_",
+                                                 {**DP_SWEEP_ENV, "FSD_EVAL_MESH": "2"})
+                report["sweep"] = {"files": files, "nms_launches": launches}
+        report["inputs"] = {"bn": sorted(rec.bn, key=str),
+                            "nms": {k: (b.cpu().numpy(), d.cpu().numpy())
+                                    for k, (b, d) in rec.nms.items()}}
+        report["collectives"] = mesh.collectives
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        with open(out + ".tmp", "wb") as f:
+            pickle.dump(report, f)
+        os.replace(out + ".tmp", out + ".pkl")
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_dp_world(world: str, seed: int, root: str) -> list:
+    """Spawn the ranks of `world`, join them within DP_WORLD_SECONDS,
+    kill the ones still running then, and return their reports; a rank that
+    failed, or did not finish, raises with its traceback."""
+    import multiprocessing
+    import pickle
+    import socket
+
+    n = DP_WORLDS[world][0]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(world, {
+        "RANK": str(r), "WORLD_SIZE": str(n), "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+        "MASTER_PORT": str(port)}, seed, root)) for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, DP_WORLD_SECONDS - (time.perf_counter() - t0)))
+    finally:
+        late = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = []
+    for r in range(n):
+        err = os.path.join(root, f"{world}_{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+    check(not errors, f"the {world} world failed:\n" + "\n".join(errors))
+    check(not late, f"ranks {late} of the {world} world ran past {DP_WORLD_SECONDS} s")
+    check(all(p.exitcode == 0 for p in procs),
+          f"the {world} world's ranks exited with {[p.exitcode for p in procs]}")
+    reports = []
+    for r in range(n):
+        with open(os.path.join(root, f"{world}_{r}.pkl"), "rb") as f:
+            reports.append(pickle.load(f))
+    reports[0]["seconds"] = time.perf_counter() - t0
+    return reports
+
+
+def dp_hold(tag: str, got: dict, want: dict) -> dict:
+    """A rank's step against the one-process step of the same R groups, as
+    two float32 answers are held elsewhere (S2D_TOL: the loss within 1e-5,
+    each leaf's update norm within 2e-2, the whole tree's within 2e-4)."""
+    loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    whole = abs(got["all"] - want["all"]) / want["all"]
+    leaf = max(abs(got["norms"][p] - v) / v for p, v in want["norms"].items() if v)
+    check(np.isfinite(got["loss"]) and loss <= S2D_TOL["loss"],
+          f"{tag}: loss {got['loss']} against {want['loss']} in one process")
+    check(whole <= 2 * S2D_TOL["all"], f"{tag}: whole update norm {whole} off")
+    for p, v in want["norms"].items():
+        check(abs(got["norms"][p] - v) <= 2 * S2D_TOL["leaf"] * v,
+              f"{tag}: update norm of {p}: {got['norms'][p]} against {v}")
+    return {"loss_rel": loss, "update_norm_rel_whole_tree": whole,
+            "update_norm_rel_worst_leaf": leaf, "bit_equal": got["digest"] == want["digest"]}
+
+
+def _by_image(lines: list) -> dict:
+    """{image id: (k, 5) float64 array of its rows' numbers}, in file order."""
+    groups: dict = {}
+    for line in lines:
+        parts = line.split()
+        groups.setdefault(parts[0], []).append([float(v) for v in parts[1:]])
+    return {k: np.asarray(v, np.float64).reshape(-1, 5) for k, v in groups.items()}
+
+
+def dp_files_compared(got: dict, want: dict) -> dict:
+    """The sharded sweep's result files against one process's. Line-equal:
+    the same classes, and in each class file the same image ids in the same
+    order with as many rows each (`same_lines`), and each row within the
+    bounds of a row of the same (class, image): DP_FILES_TOL * |p| and one
+    printed step (1e-6) for the probability, DP_FILES_PX + DP_FILES_TOL *
+    |v| for a corner
+    (`worst_over_tolerance` at most 1). Rows are matched greedily to the
+    nearest: two boxes of one image whose confidences tie to a few float32
+    steps may swap their order when the two runs round otherwise
+    (`reordered_groups` counts the (class, image) groups where they did)."""
+    same = sorted(got) == sorted(want)
+    lines = identical = reordered = 0
+    worst, worst_rows = 0.0, None
+    for name in want if same else ():
+        identical += sum(g == w for g, w in zip(got[name], want[name]))
+        g_by, w_by = _by_image(got[name]), _by_image(want[name])
+        same &= list(g_by) == list(w_by)
+        for img, w in w_by.items():
+            g = g_by.get(img, np.zeros((0, 5)))
+            if len(g) != len(w):
+                same = False
+                continue
+            lines += len(w)
+            # gap[i, j]: row i of `got` against row j of `want`, in tolerances
+            room = DP_FILES_TOL * np.abs(w) + np.asarray([1e-6] + [DP_FILES_PX] * 4)
+            gap = (np.abs(g[:, None, :] - w[None, :, :]) / room[None]).max(axis=2)
+            free, order = np.ones(len(g), bool), []
+            for j in range(len(w)):
+                i = int(np.argmin(np.where(free, gap[:, j], np.inf)))
+                free[i] = False
+                order.append(i)
+                if gap[i, j] > worst:
+                    worst, worst_rows = float(gap[i, j]), [name, img, g[i].tolist(),
+                                                          w[j].tolist()]
+            reordered += order != list(range(len(w)))
+    return {"same_lines": bool(same), "lines": lines, "identical_lines": identical,
+            "reordered_groups": reordered, "tolerance": DP_FILES_TOL, "pixels": DP_FILES_PX,
+            "worst_over_tolerance": worst, "worst_rows": worst_rows}
+
+
+def phase_dp(seed: int, smi: str, recorded: PathInputs) -> dict:
+    """Data parallelism on the card: the one-process steps and sweep first
+    (here, no mesh), then a world of one under NCCL and a world of two under
+    gloo (spawned ranks), each rank's inputs added to this path's record.
+    Returns the ranks' bn_sums and nms_rows launches."""
+    t0 = time.perf_counter()
+    meta_one = dp_step(dp_meta(seed), None, DP_TIMED_STEPS)
+    plain_one = dp_step(dp_plain(seed), None)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        data_options, settings = dp_sweep_inputs(root, seed)
+        one_files, one_launches = dp_sweep_files(root, data_options, settings, "one_",
+                                                 DP_SWEEP_ENV)
+        check(one_launches == -(-DP_SWEEP_IMAGES // DP_SWEEP_BATCH),
+              f"the one-process sweep launched nms_rows {one_launches} times")
+        torch.cuda.empty_cache()
+        nccl = run_dp_world("nccl1", seed, root)
+        gloo = run_dp_world("gloo2", seed, root)
+    for rep in nccl + gloo:
+        recorded.bn |= set(rep["inputs"]["bn"])
+        for shape, (b, d) in rep["inputs"]["nms"].items():
+            recorded.nms.setdefault(shape, (torch.from_numpy(b).to(DEVICE),
+                                            torch.from_numpy(d).to(DEVICE)))
+    (n1,), (g0, g1) = nccl, gloo
+    report = {"card": smi, "groups": DP_GROUPS, "batch": meta_one["images"], "size": 416,
+              "dtype": "float32"}
+    # the world of one under NCCL: both groups on the rank, through the mesh
+    check(n1["backend"] == DP_WORLDS["nccl1"][1] and n1["size"] == 1,
+          f"world of one: {n1['backend']}")
+    check(g0["backend"] == DP_WORLDS["gloo2"][1] and g0["size"] == 2,
+          f"world of two: {g0['backend']}")
+    check(n1["meta"]["groups"] == DP_GROUPS, "the rank of a world of one got every group")
+    check(n1["meta"]["launches"][:2] == [DP_GROUPS * BN_LAYERS] * 2,
+          f"the world of one's step launched {n1['meta']['launches']} bn_sums kernels")
+    report["nccl_world_of_one"] = {
+        "against_one_process": dp_hold("nccl world of one", n1["meta"], meta_one),
+        "collectives_per_step": n1["meta"]["collectives"],
+        "bn_launches_per_step": n1["meta"]["launches"][:2],
+        "images_per_s_mesh": n1["meta"]["images_per_s"],
+        "images_per_s_no_mesh": meta_one["images_per_s"],
+        "peak_memory_bytes": n1["meta"]["peak_memory_bytes"],
+        "peak_memory_bytes_no_mesh": meta_one["peak_memory_bytes"],
+        "world_seconds": n1["seconds"]}
+    # the world of two under gloo on cuda:0: one group a rank
+    for key, one, layers_ in (("meta", meta_one, BN_LAYERS), ("plain", plain_one,
+                                                               PLAIN_BN_LAYERS)):
+        for rep in (g0, g1):
+            check(rep[key]["groups"] == 1, f"a rank of two got {rep[key]['groups']} groups")
+            check(rep[key]["launches"][:2] == [layers_, layers_],
+                  f"rank {rep['rank']}'s {key} step launched {rep[key]['launches']}")
+        check(g0[key]["digest"] == g1[key]["digest"],
+              f"the two ranks' {key} trees differ after the step")
+        report[f"gloo_world_of_two_{key}"] = {
+            "ranks_bit_equal": True,
+            "against_one_process": dp_hold(f"gloo {key}", g0[key], one),
+            "collectives_per_step": g0[key]["collectives"],
+            "bn_launches_per_rank": g0[key]["launches"][:2],
+            "peak_memory_bytes_by_rank": [g0[key]["peak_memory_bytes"],
+                                          g1[key]["peak_memory_bytes"]],
+            "peak_memory_bytes_one_process": one["peak_memory_bytes"]}
+    report["gloo_world_seconds"] = g0["seconds"]
+    # the sharded sweep: rank 0 writes, both ranks launch the NMS kernel
+    check(g1["sweep"]["files"] is None, "rank 1 of the sweep wrote files")
+    launches = [g0["sweep"]["nms_launches"], g1["sweep"]["nms_launches"]]
+    check(all(n > 0 for n in launches), f"nms_rows launches by rank: {launches}")
+    report["sharded_sweep"] = {
+        "images": DP_SWEEP_IMAGES, "batch": DP_SWEEP_BATCH, "nms_launches_by_rank": launches,
+        "nms_launches_one_process": one_launches,
+        **dp_files_compared(g0["sweep"]["files"], one_files)}
+    report["seconds"] = time.perf_counter() - t0
+    emit("dp", **report)
+    files = report["sharded_sweep"]
+    check(files["same_lines"] and files["lines"] > 0 and files["worst_over_tolerance"] <= 1,
+          f"the sharded sweep's files are not line-equal to one process's: {files}")
+    fwd = sum(r[k]["launches"][0] for r in (n1, g0, g1) for k in ("meta", "plain") if k in r)
+    bwd = sum(r[k]["launches"][1] for r in (n1, g0, g1) for k in ("meta", "plain") if k in r)
+    copies = sum(r[k]["launches"][2] for r in (n1, g0, g1) for k in ("meta", "plain") if k in r)
+    return {"bn": {"fwd": fwd, "bwd": bwd, "layout_copies": copies},
+            "nms": {"launches": sum(launches)}}
+
+
 # the multi-scale schedule's sizes run from 320 to 608 px; the workflow's
 # cut run stays at 416, so its layers are also held at the top of the range
 MULTISCALE_TOP = 608
@@ -2788,7 +3242,7 @@ def bn_kernel_entries(bn: dict, trained: dict) -> list:
 
 
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
-          "debug", "int8_serve", "native", "ckpt", "files", "workflow")
+          "debug", "int8_serve", "native", "ckpt", "files", "workflow", "dp")
 
 
 def main() -> int:
@@ -2841,6 +3295,10 @@ def main() -> int:
             with PathInputs() as recorded[path]:
                 got = fn(args.seed, smi)
             trained[path], served[path] = got["bn"], got["nms"]
+    if "dp" in phases:
+        with PathInputs() as recorded["dp"]:
+            got = phase_dp(args.seed, smi, recorded["dp"])
+        trained["dp"], served["dp"] = got["bn"], got["nms"]
     held = phase_path_inputs(recorded, args.seed)
     for path, got in served.items():
         check(got["launches"] > 0, f"the {path} path never launched the NMS kernel")

@@ -20,15 +20,20 @@ def resolve_configs(datacfg: str, netcfg: str, learnetcfg: str | None = None):
     return data_options, net_blocks, learnet_blocks, settings
 
 
-def replica_layout(batch_size: int, n_groups: int | None = None):
-    """(n_groups, per_group_batch). The JAX package makes one replica group
-    per device; the port drives one device, so there is one group unless the
-    caller asks for more (they then run one after another on that device).
-    A group count that does not divide the batch falls back to one group."""
-    r = n_groups or 1
-    if r > 1 and batch_size % r == 0:
-        return r, batch_size // r
-    return 1, batch_size
+def replica_layout(batch_size: int, n_groups: int | None = None, mesh=None):
+    """(n_groups, per_group_batch). As the JAX package makes one replica
+    group per device, a world of N ranks (`mesh`) makes N groups, one a
+    rank; one process makes one. `n_groups` may ask for more, a multiple of
+    N: each rank then runs its share one after another. The group count
+    must divide the batch, else this raises: the JAX package's fallback to
+    one group on one device has no meaning for N processes."""
+    world = mesh.size if mesh is not None else 1
+    r = n_groups or world
+    if r % world:
+        raise ValueError(f"{r} replica groups do not split over {world} ranks")
+    if batch_size % r:
+        raise ValueError(f"{r} replica groups do not divide the batch of {batch_size}")
+    return r, batch_size // r
 
 
 def ensure_backup_dir(settings) -> str:

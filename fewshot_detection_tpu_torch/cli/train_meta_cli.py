@@ -7,7 +7,9 @@ schedule state restored from the .weights `seen` counter, per-epoch list
 dataset + support stream, step-LR warmup schedule adjusted per batch, LR /
 batch_size and weight_decay * batch_size * factor scaling, periodic
 .weights checkpoints. The per-step compute (forward, loss, SGD, BN merge)
-is `train.trainer.MetaTrainer.step` on one device.
+is `train.trainer.MetaTrainer.step`: on one device, or under `torchrun
+--nproc_per_node=N` on N devices, one replica group a rank by default
+(parallel/mesh.py; the same step as N groups on one device).
 
 Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_REMAT,
 FSD_CLIP_NORM, FSD_OVERLAP_METRICS, FSD_BN_DARKNET, FSD_WARMUP_SEEN,
@@ -16,8 +18,8 @@ FSD_NATIVE_BATCH (the C++ image loader, native/), FSD_WORKERS (loader worker
 processes, data/mploader.py), FSD_ORBAX_DIR / FSD_ASYNC_CKPT (full-state
 checkpoints and resume, train/checkpoint.py) and FSD_PROFILE_DIR (a
 torch.profiler trace of each epoch, utils/profiling.py). Each epoch ends with
-the StepTimer line (data / step / sync phases and images/s). More than one
-device raises NotImplementedError instead of being ignored.
+the StepTimer line (data / step / sync phases and images/s). A device list
+in one process raises NotImplementedError: N devices are N processes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..models.convert import from_jax_params, require_grads, to_jax_params
 from ..models.meta import MetaSpec, init_meta_params
 from ..models.spec import build_spec
 from ..ops.region_loss import sample_neg_keep
+from ..parallel.mesh import launched_by_torchrun, make_mesh, replicate, shard_batch
 from ..train import MetaTrainer, init_momentum, lr_schedule, neg_ratio_lr_factor
 from ..train.checkpoint import (
     latest_checkpoint,
@@ -53,14 +56,32 @@ from ..utils import format_loss_line, log
 from ..utils.profiling import StepTimer, trace
 from .common import ensure_backup_dir, replica_layout, resolve_configs
 
-def refuse_waiting_switches(device=None) -> None:
-    """Raise NotImplementedError when the device list asks for more than one
-    device (the JAX package's parallel/, not ported yet), rather than ignore
-    the request."""
+def refuse_device_list(device=None) -> None:
+    """Raise NotImplementedError when one process is asked to train on more
+    than one device, rather than ignore the request: each device is a
+    process of its own, one rank of a world that torchrun starts."""
     if isinstance(device, (list, tuple)) and len(device) > 1:
         raise NotImplementedError(
-            "training on more than one device (parallel/) is not ported yet"
+            "training on more than one device from one process: start one process a "
+            "device with torchrun --nproc_per_node=N (parallel/mesh.py)"
         )
+
+
+def join_world(device):
+    """(mesh, device): the data-parallel world when this process is one rank
+    of one (torchrun's environment, or a process group already joined), and
+    the device this rank computes on; (None, device) for a process alone."""
+    refuse_device_list(device)
+    if not launched_by_torchrun():
+        return None, resolve_device(device)
+    mesh = make_mesh(device=device)
+    return mesh, mesh.device
+
+
+def agreed(mesh, value):
+    """`value` as rank 0 has it (a seed drawn from the clock: every rank must
+    draw the same episodes)."""
+    return value if mesh is None else mesh.broadcast_object(value)
 
 
 def compute_dtype() -> str:
@@ -143,18 +164,19 @@ def schedule_from_cfg(net_options: dict, neg_ratio, n_meta_classes: int) -> Sche
 
 def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
          n_groups: int | None = None):
-    refuse_waiting_switches(device)
-    device = resolve_device(device)
+    mesh, device = join_world(device)
+    chief = mesh is None or mesh.is_chief  # the one rank that logs and writes
+    say = log if chief else (lambda msg: None)
     # float32 training is full float32: no TF32 in convolutions or products
     set_float32_precision(tf32=False)
     data_options, darknetcfg, learnetcfg, settings = resolve_configs(
         datacfg, darknetcfg_path, learnetcfg_path
     )
     backupdir = ensure_backup_dir(settings)
-    log("logging to " + backupdir)
+    say("logging to " + backupdir)
 
     spec = MetaSpec(build_spec(darknetcfg), build_spec(learnetcfg))
-    params = init_meta_params(spec, int(time.time()) % (2**31))
+    params = init_meta_params(spec, agreed(mesh, int(time.time()) % (2**31)))
     (dp, lp), header = weights_io.load_weights(
         weightfile, [spec.darknet, spec.learnet],
         [params["darknet"], params["learnet"]],
@@ -176,10 +198,10 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
     max_epochs = max_batches * batch_size // max(nsamples, 1) + 1
     if settings.tuning:
         max_epochs = int(math.ceil(settings.max_epoch * 1.0 / settings.repeat))
-    log(f"{settings.repeat} {nsamples} {max_batches} {batch_size}")
-    log(f"factor: {sched.factor}")
+    say(f"{settings.repeat} {nsamples} {max_batches} {batch_size}")
+    say(f"factor: {sched.factor}")
 
-    n_groups, _ = replica_layout(batch_size, n_groups)
+    n_groups, _ = replica_layout(batch_size, n_groups, mesh)
     trainer = MetaTrainer(
         spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
         metain_type=settings.metain_type,
@@ -192,6 +214,7 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
         image_dtype=getattr(torch, compute_dtype()),
         warmup_seen=settings.warmup_seen,
         device=device,
+        mesh=mesh,
     )
     params = require_grads({
         "darknet": from_jax_params(spec.darknet, dp, device),
@@ -206,14 +229,17 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
     if ckpt_dir:
         latest = latest_checkpoint(ckpt_dir)
         if latest:
-            log(f"resuming train state from {latest}")
+            say(f"resuming train state from {latest}")
             state = restore_train_state(latest, {"params": params, "momentum": mom})
             params, mom = state["params"], state["momentum"]
             seen = state["counters"]["seen"]
             processed_batches = state["counters"]["processed_batches"]
             init_epoch = state["counters"]["step"]
+    if mesh is not None:
+        # every rank starts from rank 0's parameters and momentum
+        replicate(mesh, (params, mom))
 
-    rng = random.Random(int(time.time()))
+    rng = random.Random(agreed(mesh, int(time.time())))
     nprng = np.random.RandomState(rng.randrange(2**31))
 
     try:
@@ -230,7 +256,7 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
             meta_iter = metaset.batches(n_groups * len(metaset.classes))
 
             lr = lr_schedule(processed_batches, sched.learning_rate, sched.steps, sched.scales)
-            log(
+            say(
                 f"epoch {epoch}/{max_epochs}, processed {epoch * nsamples} "
                 f"samples, lr {lr:f}"
             )
@@ -263,9 +289,10 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
             pending = None
 
             def flush(p):
-                with timer.phase("sync"):  # the one place a step waits
+                with timer.phase("sync"):  # the one place a step waits, on every rank
                     line = format_loss_line(*p)
-                print(line)
+                if chief:
+                    print(line)
 
             try:
                 with trace(device=device):  # torch.profiler when FSD_PROFILE_DIR is set
@@ -283,7 +310,16 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
                                 imgs, labels, metax, mask, n_groups,
                                 settings.neg_ratio, nprng, dtype=compute_dtype(),
                             )
-                            seen += imgs.shape[0]
+                            if mesh is not None:
+                                # Every rank reads, decodes and augments the
+                                # whole episode and keeps its own groups: the
+                                # random draws (crops, flips, HSV, supports,
+                                # negatives) are one stream all ranks walk in
+                                # step. The host cost: N ranks decode N
+                                # episodes where one would do (with
+                                # FSD_WORKERS, N sets of loader processes).
+                                batch = shard_batch(mesh, batch)
+                            seen += imgs.shape[0]  # the global batch
                             params, mom, metrics = trainer.step(
                                 params, mom, batch, seen=seen, lr=lr)
                         if overlap:
@@ -300,17 +336,18 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
                 # decoding batches until interpreter exit
                 if mp_loader is not None:
                     mp_loader.close()
-            log(timer.summary(images=nsamples))
+            say(timer.summary(images=nsamples))
 
             if (epoch + 1) % settings.save_interval == 0:
                 out = f"{backupdir}/{epoch + 1:06d}.weights"
-                log("save weights to " + out)
-                weights_io.save_weights(
-                    out, [spec.darknet, spec.learnet],
-                    [to_jax_params(spec.darknet, params["darknet"]),
-                     to_jax_params(spec.learnet, params["learnet"])],
-                    seen=(epoch + 1) * nsamples,
-                )
+                say("save weights to " + out)
+                if chief:
+                    weights_io.save_weights(
+                        out, [spec.darknet, spec.learnet],
+                        [to_jax_params(spec.darknet, params["darknet"]),
+                         to_jax_params(spec.learnet, params["learnet"])],
+                        seen=(epoch + 1) * nsamples,
+                    )
                 if ckpt_dir:
                     # the running `seen`, not the header's (epoch+1) *
                     # nsamples that the JAX package stores here too: a
@@ -320,7 +357,7 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
                     # the region loss's warm-up, for one)
                     save_train_state(
                         ckpt_dir, epoch + 1, params, mom,
-                        seen=seen, processed_batches=processed_batches,
+                        seen=seen, processed_batches=processed_batches, mesh=mesh,
                     )
     finally:
         # commit an in-flight FSD_ASYNC_CKPT=1 background save also on an

@@ -7,15 +7,17 @@ yolo_joint few-shot list merge (train.py:94-103), step-LR schedule with the
 optimizer handed lr / batch_size and weight_decay = decay * batch_size,
 weight decay exempting BN affine and biases (train.py:132-138), .weights
 checkpoints every `save_interval` epochs. The per-step compute is
-`train.trainer.PlainTrainer.step` on one device.
+`train.trainer.PlainTrainer.step`, on one device or, under `torchrun
+--nproc_per_node=N`, on N (one replica group a rank by default; see
+train_meta_cli).
 
 Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_REMAT,
 FSD_CLIP_NORM, FSD_WORKERS (loader worker processes, data/mploader.py), and
 those of the datasets (FSD_NOAUG, FSD_RAM_CACHE, FSD_NATIVE,
 FSD_NATIVE_BATCH, ...). As in the JAX package's plain loop there are no
-full-state checkpoints and no trace here. More than one device raises
-NotImplementedError, as in the meta CLI
-(`train_meta_cli.refuse_waiting_switches`).
+full-state checkpoints and no trace here. A device list in one process
+raises NotImplementedError, as in the meta CLI
+(`train_meta_cli.refuse_device_list`).
 """
 
 from __future__ import annotations
@@ -31,17 +33,17 @@ from ..data.datasets import DetectionDataset
 from ..data.lists import load_lines
 from ..data.loader import prefetch
 from ..data.mploader import MPLoader, detection_stream
-from ..eval.detector import resolve_device
 from ..eval.valid import set_float32_precision
 from ..models import weights_io
 from ..models.convert import from_jax_params, require_grads, to_jax_params
 from ..models.darknet import init_params
 from ..models.spec import build_spec
 from ..ops.region_loss import sample_neg_keep
+from ..parallel.mesh import replicate, shard_batch
 from ..train import PlainTrainer, init_momentum, lr_schedule
 from ..utils import format_loss_line, log
 from .common import ensure_backup_dir, replica_layout, resolve_configs
-from .train_meta_cli import Schedule, _image_host_dtype, compute_dtype, refuse_waiting_switches
+from .train_meta_cli import Schedule, _image_host_dtype, agreed, compute_dtype, join_world
 
 
 def make_plain_batch(imgs, labels, n_groups, neg_ratio, rng, dtype: str = "float32"):
@@ -77,8 +79,9 @@ def plain_schedule_from_cfg(net_options: dict) -> Schedule:
 
 
 def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = None):
-    refuse_waiting_switches(device)
-    device = resolve_device(device)
+    mesh, device = join_world(device)
+    chief = mesh is None or mesh.is_chief  # the one rank that logs and writes
+    say = log if chief else (lambda msg: None)
     # float32 training is full float32: no TF32 in convolutions or products
     set_float32_precision(tf32=False)
     data_options, blocks, _, settings = resolve_configs(datacfg, cfgfile)
@@ -86,10 +89,10 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
     batch_size, max_batches = sched.batch_size, sched.max_batches
 
     backupdir = ensure_backup_dir(settings)
-    log("logging to " + backupdir)
+    say("logging to " + backupdir)
 
     spec = build_spec(blocks)
-    params = init_params(spec, int(time.time()) % (2**31))
+    params = init_params(spec, agreed(mesh, int(time.time()) % (2**31)))
     (params,), header = weights_io.load_weights(weightfile, [spec], [params])
     seen = header.seen
 
@@ -105,7 +108,7 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
     init_epoch = seen // max(nsamples, 1)
     max_epochs = max_batches * batch_size // max(nsamples, 1) + 1
 
-    n_groups, _ = replica_layout(batch_size, n_groups)
+    n_groups, _ = replica_layout(batch_size, n_groups, mesh)
     trainer = PlainTrainer(
         spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
         zero_tcls=settings.metayolo,
@@ -114,11 +117,14 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
         image_dtype=getattr(torch, compute_dtype()),
         warmup_seen=settings.warmup_seen,
         device=device,
+        mesh=mesh,
     )
     params = require_grads(from_jax_params(spec, params, device))
     mom = init_momentum(params)
+    if mesh is not None:
+        replicate(mesh, (params, mom))
 
-    rng = random.Random(int(time.time()))
+    rng = random.Random(agreed(mesh, int(time.time())))
     nprng = np.random.RandomState(rng.randrange(2**31))
 
     for epoch in range(init_epoch, max_epochs):
@@ -128,7 +134,7 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
             rng=rng, filter_valid=False,
         )
         lr = lr_schedule(processed_batches, sched.learning_rate, sched.steps, sched.scales)
-        log(
+        say(
             f"epoch {epoch}/{max_epochs}, processed {epoch * nsamples} "
             f"samples, lr {lr:f}"
         )
@@ -149,21 +155,28 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
                 processed_batches += 1
                 batch = make_plain_batch(imgs, labels, n_groups, settings.neg_ratio, nprng,
                                          dtype=compute_dtype())
-                seen += imgs.shape[0]
+                if mesh is not None:
+                    # every rank decodes the whole batch and keeps its own
+                    # groups (one random stream; N times one process's
+                    # host decode, as in train_meta_cli)
+                    batch = shard_batch(mesh, batch)
+                seen += imgs.shape[0]  # the global batch
                 params, mom, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
-                print(format_loss_line(seen, metrics))  # the one place a step waits
+                line = format_loss_line(seen, metrics)  # the one place a step waits
+                if chief:
+                    print(line)
         finally:
             # close worker processes on every exit path, not just the clean
             # epoch end (a failure otherwise leaks them until exit)
             if loader is not None:
                 loader.close()
-        log(
+        say(
             "training with %f samples/s"
             % (nsamples / max(time.time() - t0, 1e-9))
         )
-        if (epoch + 1) % settings.save_interval == 0:
+        if (epoch + 1) % settings.save_interval == 0 and chief:
             out = f"{backupdir}/{epoch + 1:06d}.weights"
-            log("save weights to " + out)
+            say("save weights to " + out)
             weights_io.save_weights(
                 out, [spec], [to_jax_params(spec, params)], seen=(epoch + 1) * nsamples
             )

@@ -11,6 +11,10 @@ Flows reproduced (file:line in the reference):
                          (valid_ensemble.py:76-178)
 
 Each sweep decodes, ranks and NMS's every row of a batch on the device.
+Under FSD_EVAL_MESH=N (`eval_mesh`) the sweep is data-parallel over a world
+of N ranks (torchrun): each rank runs its contiguous block of every batch,
+and rank 0 gathers the box lists and writes the files, line-equal to one
+process's.
 
 Output rows are `imgid prob x1 y1 x2 y2` in original-image pixels, prob =
 det_conf * cls_conf, one file per class — the contract eval/voc_eval.py
@@ -27,6 +31,7 @@ import torch
 from ..config.settings import Settings
 from ..data.datasets import DetectionDataset, MetaDataset
 from ..ops.boxes import get_region_boxes, get_region_boxes_v2, nms
+from ..parallel.mesh import make_mesh, pad_to_ranks, world_size
 from .detector import MetaDetector, PlainDetector
 from .device_pipeline import DevicePipeline, MetaDevicePipeline
 
@@ -88,12 +93,54 @@ def meta_host_boxes(region, output, n_cls: int):
     return [nms(boxes, NMS_THRESH) for boxes in batch_boxes]
 
 
-def refuse_eval_mesh() -> None:
-    """FSD_EVAL_MESH (the JAX package's data-parallel sweep over several
-    devices) is not ported yet: refused rather than ignored."""
-    if os.environ.get("FSD_EVAL_MESH"):
-        raise NotImplementedError(
-            "FSD_EVAL_MESH is set, but the sweep over several devices is not ported yet")
+def eval_mesh(device="cuda"):
+    """FSD_EVAL_MESH=N runs the sweep data-parallel over a world of N ranks
+    (FSD_EVAL_MESH=all: every rank of the world), one device a rank: each
+    rank sweeps its contiguous block of every batch. The world is
+    torchrun's (`torchrun --nproc_per_node=N valid_torch.py ...`); a world
+    of another size raises, and so does a world of several ranks with the
+    switch unset. Pair with FSD_EVAL_BATCH >= N. None when unset."""
+    n = os.environ.get("FSD_EVAL_MESH")
+    if not n:
+        if world_size() > 1:  # N ranks each sweeping everything into one set of files
+            raise ValueError(
+                f"this process is one of {world_size()} ranks: set FSD_EVAL_MESH to shard "
+                "the sweep over them")
+        return None
+    want = None if n == "all" else int(n)
+    if want is not None and want != world_size():
+        raise ValueError(
+            f"FSD_EVAL_MESH={n} needs a world of {n} ranks, and this process is one of "
+            f"{world_size()}: launch the sweep with torchrun --nproc_per_node={n}")
+    return make_mesh(want, device=device)
+
+
+def _local_batch(imgs, mesh):
+    """(the images this rank runs, the batch's length): the whole batch in
+    one process; a rank's block of it padded to a multiple of the ranks."""
+    if mesh is None:
+        return imgs, imgs.shape[0]
+    return pad_to_ranks(mesh, imgs)
+
+
+def _gathered(rows: list, mesh, n_rows: int):
+    """Every rank's box lists put together on rank 0 in rank order, the rows
+    of the padding cut (`n_rows` of the real batch, image-major); None on
+    the other ranks. In one process the rows as they are."""
+    if mesh is None:
+        return rows
+    parts = mesh.gather_object(rows)
+    if parts is None:
+        return None
+    return [r for part in parts for r in part][:n_rows]
+
+
+def _on_chief(mesh, fn):
+    """fn() on rank 0 (or in one process), its result broadcast to every
+    rank: the class codes, so every rank reweights with the same bits."""
+    if mesh is None:
+        return fn()
+    return mesh.broadcast_object(fn() if mesh.is_chief else None)
 
 
 def quantize_sweep(m: MetaDetector, ds, codes, batch_size: int) -> bool:
@@ -156,34 +203,41 @@ def run_valid(
 ) -> str:
     """Plain YOLOv2 sweep in full float32 on `device`; boxes routed to files
     by predicted class id. Returns the results prefix."""
-    refuse_eval_mesh()
+    mesh = eval_mesh(device)
     set_float32_precision(tf32=False)
     batch_size = batch_size or eval_batch_size()
-    m = PlainDetector(cfgfile, weightfile, device=device)
+    m = PlainDetector(cfgfile, weightfile, device=mesh.device if mesh else device)
     prefix = results_prefix(weightfile, "e")
-    print("saving to: " + prefix)
+    if mesh is None or mesh.is_chief:
+        print("saving to: " + prefix)
     ds = DetectionDataset(
         data_options["valid"], settings, shape=(m.width, m.height),
         shuffle=False, train=False, filter_valid=False,
     )
-    return _plain_sweep(m, ds, prefix, outfile, settings.classes, batch_size)
+    return _plain_sweep(m, ds, prefix, outfile, settings.classes, batch_size, mesh=mesh)
 
 
 def _plain_sweep(m, ds, prefix, outfile, class_names, batch_size,
-                 stats: dict | None = None) -> str:
+                 stats: dict | None = None, mesh=None) -> str:
     """Detection sweep of a PlainDetector over `ds` (the interface of
     `_meta_sweep`). Every (cls_conf, cls_id) pair of a kept box goes to that
-    class's file (reference valid.py:62-80). `stats` as in `_meta_sweep`."""
-    fps = _open_result_files(prefix, class_names, outfile)
+    class's file (reference valid.py:62-80). `stats` and `mesh` as in
+    `_meta_sweep`."""
+    chief = mesh is None or mesh.is_chief
+    fps = _open_result_files(prefix, class_names, outfile) if chief else []
     try:
         pipe = _device_pipe(m.region)
         host = functools.partial(plain_host_boxes, m.region)
         line_id = -1
         n_batches = n_device = 0
         for imgs, _ in ds.batches(batch_size, drop_last=False):
-            final, done = _batch_boxes(pipe, m(imgs), host)
+            local, n_imgs = _local_batch(imgs, mesh)
+            final, done = _batch_boxes(pipe, m(local), host)
             n_batches += 1
             n_device += int(done)
+            final = _gathered(final, mesh, n_imgs)
+            if final is None:
+                continue
             for boxes in final:
                 line_id += 1
                 imgid = os.path.basename(ds.lines[line_id]).split(".")[0]
@@ -232,21 +286,40 @@ def run_valid_ensemble(
     device="cuda",
 ) -> str:
     """The whole ensemble sweep in full float32 on `device` (int8 under
-    FSD_INT8=1, see `quantize_sweep`); returns the results prefix."""
-    refuse_eval_mesh()
+    FSD_INT8=1, see `quantize_sweep`); returns the results prefix. Under
+    FSD_EVAL_MESH rank 0 alone makes the class codes (over every support
+    image) and hands them to the other ranks."""
+    mesh = eval_mesh(device)
     set_float32_precision(tf32=False)
     batch_size = batch_size or eval_batch_size()
     m = MetaDetector(darknetcfg, learnetcfg, weightfile,
-                     metain_type=settings.metain_type, device=device)
+                     metain_type=settings.metain_type, device=mesh.device if mesh else device)
     kind = "ene_" if use_baserw else "ene"
     prefix = results_prefix(weightfile, kind)
-    print("saving to: " + prefix)
-
     metaset = MetaDataset(
         data_options["meta"], settings, train=False, ensemble=True,
         with_ids=True,
     )
     n_cls = len(metaset.classes)
+    codes = _on_chief(mesh, lambda: _ensemble_codes(m, metaset, prefix, settings, use_baserw))
+    ds = DetectionDataset(
+        data_options["valid"], settings, shape=(m.width, m.height),
+        shuffle=False, train=False, filter_valid=False,
+    )
+    quantize_sweep(m, ds, codes, batch_size)
+    # the fixed codes go to the device once; per-batch conversion would
+    # cost n_cls transfers on every sweep batch
+    fixed = m.commit_codes(codes)
+    return _meta_sweep(m, ds, prefix, outfile, lambda: fixed, n_cls,
+                       metaset.classes, batch_size, mesh=mesh)
+
+
+def _ensemble_codes(m: MetaDetector, metaset, prefix: str, settings: Settings,
+                    use_baserw: bool) -> list:
+    """The ensemble sweep's class codes (valid_ensemble.py:76-112): the
+    running mean over every support image, saved under FSD_SAVE_RW, the
+    base classes' spliced from the stored pickle with `use_baserw`."""
+    print("saving to: " + prefix)
     print("===> Generating dynamic weights...")
     codes, _ = ensemble_class_codes(m, metaset)
 
@@ -278,17 +351,7 @@ def run_valid_ensemble(
             if rw.ndim == 4 and rw.shape != codes[i].shape:
                 rw = rw.transpose(0, 2, 3, 1)
             codes[i][tki] = rw[tki]
-
-    ds = DetectionDataset(
-        data_options["valid"], settings, shape=(m.width, m.height),
-        shuffle=False, train=False, filter_valid=False,
-    )
-    quantize_sweep(m, ds, codes, batch_size)
-    # the fixed codes go to the device once; per-batch conversion would
-    # cost n_cls transfers on every sweep batch
-    fixed = m.commit_codes(codes)
-    return _meta_sweep(m, ds, prefix, outfile, lambda: fixed, n_cls,
-                       metaset.classes, batch_size)
+    return codes
 
 
 def run_valid_meta(
@@ -308,14 +371,16 @@ def run_valid_meta(
 
     The batch size is part of this protocol (codes refresh once per
     detection batch), so FSD_EVAL_BATCH does NOT apply here: the
-    reference's batch 2 stays the default."""
-    refuse_eval_mesh()
+    reference's batch 2 stays the default. Under FSD_EVAL_MESH rank 0 draws
+    each batch's support set and makes its codes for every rank."""
+    mesh = eval_mesh(device)
     set_float32_precision(tf32=False)
     batch_size = batch_size or 2
     m = MetaDetector(darknetcfg, learnetcfg, weightfile,
-                     metain_type=settings.metain_type, device=device)
+                     metain_type=settings.metain_type, device=mesh.device if mesh else device)
     prefix = results_prefix(weightfile, "e")
-    print("saving to: " + prefix)
+    if mesh is None or mesh.is_chief:
+        print("saving to: " + prefix)
 
     # support selection is random per batch, as in the reference's eval
     # loader (dataset.py:345-348); `rng` pins it for parity tests
@@ -327,8 +392,9 @@ def run_valid_meta(
         data_options["valid"], settings, shape=(m.width, m.height),
         shuffle=False, train=False, filter_valid=False,
     )
-    return _meta_sweep(m, ds, prefix, outfile, lambda: m.class_codes(*next(meta_iter)),
-                       n_cls, metaset.classes, batch_size)
+    return _meta_sweep(m, ds, prefix, outfile,
+                       lambda: _on_chief(mesh, lambda: m.class_codes(*next(meta_iter))),
+                       n_cls, metaset.classes, batch_size, mesh=mesh)
 
 
 def _write_meta_batch(fps, batch_boxes, ds, bs, n_cls, line_id):
@@ -342,7 +408,7 @@ def _write_meta_batch(fps, batch_boxes, ds, bs, n_cls, line_id):
 
 
 def _meta_sweep(m, ds, prefix, outfile, batch_codes, n_cls, class_names, batch_size,
-                stats: dict | None = None):
+                stats: dict | None = None, mesh=None):
     """Meta detection sweep over `ds`, which yields (images, labels) from
     `batches(batch_size, drop_last=False)` and answers `lines[i]` (a name
     whose basename is the image id) and `image_size(i)`; `batch_codes()`
@@ -351,19 +417,26 @@ def _meta_sweep(m, ds, prefix, outfile, batch_codes, n_cls, class_names, batch_s
     prefix. A `stats` dict, when given, receives the number of `batches`, of
     `device_batches` (those the device pipeline finished without handing the
     batch to the host path) and `max_candidates` (the most candidates above
-    the threshold in any row, to hold against the buffer size)."""
-    fps = _open_result_files(prefix, class_names, outfile)
+    the threshold in any row, to hold against the buffer size), counted on
+    this rank. With a `mesh` each rank runs its block of every batch, rank 0
+    gathers the box lists and writes the files (`batch_codes` must then give
+    every rank the same codes)."""
+    chief = mesh is None or mesh.is_chief
+    fps = _open_result_files(prefix, class_names, outfile) if chief else []
     try:
         pipe = _device_pipe(m.region, n_cls)
         host = functools.partial(meta_host_boxes, m.region, n_cls=n_cls)
         line_id = -1
         n_batches = n_device = 0
         for imgs, _ in ds.batches(batch_size, drop_last=False):
-            output = m.detect(imgs, batch_codes())
-            batch_boxes, done = _batch_boxes(pipe, output, host)
+            codes = batch_codes()
+            local, n_imgs = _local_batch(imgs, mesh)
+            batch_boxes, done = _batch_boxes(pipe, m.detect(local, codes), host)
             n_batches += 1
             n_device += int(done)
-            line_id = _write_meta_batch(fps, batch_boxes, ds, imgs.shape[0], n_cls, line_id)
+            batch_boxes = _gathered(batch_boxes, mesh, n_imgs * n_cls)
+            if batch_boxes is not None:
+                line_id = _write_meta_batch(fps, batch_boxes, ds, n_imgs, n_cls, line_id)
         if stats is not None:
             stats.update(batches=n_batches, device_batches=n_device,
                          max_candidates=pipe.max_candidates)

@@ -15,9 +15,11 @@ PIL, which the machine with the card does not have. A file that does not
 decode raises `IOError` naming the file and the reason, among them the JPEG
 codings that libjpeg-turbo fails on too (lossless, 12-bit, CMYK).
 
-The native path is an opt-in throughput path (`FSD_NATIVE=1`):
-interpolation is a PIL-style triangle filter, within a few uint8 counts of
-PIL but not bit-identical (PIL's resize default is bicubic)."""
+The native path is an opt-in throughput path (`FSD_NATIVE=1`). The
+datasets' interpolation is a PIL-style triangle filter, as in the JAX
+package's native library: close to PIL's BILINEAR, not to its default.
+`resize_pil` / `load_resized_pil` (`src/resize.cpp`) are PIL's default
+`Image.resize` (bicubic), bit for bit."""
 
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "src", "imagepipe.cpp")
 SOURCES = (SOURCE, os.path.join(_HERE, "src", "pngdec.cpp"),
-           os.path.join(_HERE, "src", "jpegdec.cpp"))
+           os.path.join(_HERE, "src", "jpegdec.cpp"), os.path.join(_HERE, "src", "resize.cpp"))
 HEADERS = (os.path.join(_HERE, "src", "decoders.h"),)
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 CXX = "g++"
@@ -65,6 +67,8 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_int, _c_float_p,
     ],
+    "fsd_resize_pil": [_c_u8_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _c_u8_p],
+    "fsd_load_resized_pil": [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, _c_u8_p],
     "fsd_load_batch_raw": [
         ctypes.POINTER(_c_u8_p), _c_int_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _c_float_p, ctypes.c_int, _c_float_p, ctypes.c_int,
@@ -180,6 +184,28 @@ class NativeImagePipe:
         rc = self.lib.fsd_load_plain(path.encode(), width, height, _fptr(out))
         if rc != 0:
             raise self.failure(path)
+        return out
+
+    def load_resized_pil(self, path: str, width: int, height: int) -> np.ndarray:
+        """(height, width, 3) uint8: the file decoded to RGB and resized as
+        PIL's `Image.open(path).convert("RGB").resize((width, height))`."""
+        out = np.empty((height, width, 3), np.uint8)
+        rc = self.lib.fsd_load_resized_pil(path.encode(), width, height, _u8ptr(out))
+        if rc != 0:
+            raise self.failure(path)
+        return out
+
+    def resize_pil(self, rgb: np.ndarray, width: int, height: int) -> np.ndarray:
+        """A decoded (H, W, 3) uint8 array resized as PIL's default
+        `Image.resize((width, height))` (bicubic, fixed point), uint8."""
+        rgb = np.ascontiguousarray(rgb, np.uint8)
+        if rgb.ndim != 3 or rgb.shape[2] != 3 or min(rgb.shape[:2] + (width, height)) <= 0:
+            raise ValueError(f"resize_pil of an array of shape {rgb.shape} to {width}x{height}")
+        out = np.empty((height, width, 3), np.uint8)
+        rc = self.lib.fsd_resize_pil(_u8ptr(rgb), rgb.shape[1], rgb.shape[0], width, height,
+                                     _u8ptr(out))
+        if rc != 0:
+            raise ValueError("fsd_resize_pil failed")
         return out
 
     def load_augment(

@@ -17,7 +17,13 @@ parameters in place, so `save_train_state` first stages a CPU copy of every
 tensor and returns only then; the next step cannot change what is being
 written. One save is in flight at a time: a new save waits for the one
 before it, and `wait_for_saves()` waits for the last (and raises what a
-background write raised)."""
+background write raised).
+
+In a data-parallel world (parallel/mesh.py) every rank holds the same state:
+rank 0 alone writes, and every rank passes a barrier after the save, so
+none runs ahead of a save that is not yet staged (or, synchronously,
+written). Every rank restores, so a resumed world continues bit-equal to
+its saved state."""
 
 from __future__ import annotations
 
@@ -95,11 +101,16 @@ def save_train_state(
     momentum: Any,
     seen: int,
     processed_batches: int,
+    mesh=None,
 ) -> str:
     """Write one checkpoint under <directory>/ckpt_<step:08d> and return that
     path. The values are copied to the host before this returns, also when
-    the write itself runs in the background (FSD_ASYNC_CKPT=1)."""
+    the write itself runs in the background (FSD_ASYNC_CKPT=1). With a
+    `mesh`, rank 0 writes and every rank waits at a barrier after."""
     path = os.path.abspath(os.path.join(directory, f"ckpt_{step:08d}"))
+    if mesh is not None and not mesh.is_chief:
+        mesh.barrier()
+        return path
     state = {
         "params": tree_map(_host_copy, params),
         "momentum": tree_map(_host_copy, momentum),
@@ -114,6 +125,8 @@ def save_train_state(
     else:
         _writer.wait()  # keep the order of the writes
         _write(state, path)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 

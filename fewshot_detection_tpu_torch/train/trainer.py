@@ -1,15 +1,23 @@
-"""Train steps (meta + plain) with replica-group semantics, on one device.
+"""Train steps (meta + plain) with replica-group semantics.
 
 Counterparts of the JAX package's `train/trainer.py:MetaTrainer` and
 `PlainTrainer`. A step takes inputs with a leading replica-group axis R.
 The JAX package vmaps the per-group episode over R and shards that axis one
-group per device; here
-the groups run one after another on one device: each group normalizes with
-its OWN batch statistics, the groups' losses are summed and differentiated
-once, the metrics are summed, and the new BN running statistics are
-AVERAGED over the groups. This reproduces the reference's DataParallel
-layout — for the meta step each replica gets its own support batch with one
-sample per class (train_meta.py:137-141, dataset.py:348).
+group per device. Here a trainer runs the groups it is given one after
+another on its device: each group normalizes with its OWN batch
+statistics, the groups' losses are summed and differentiated once, the
+metrics are summed, and the new BN running statistics are AVERAGED over
+the groups. This reproduces the reference's DataParallel layout — for the
+meta step each replica gets its own support batch with one sample per
+class (train_meta.py:137-141, dataset.py:348).
+
+With a `mesh` (parallel/mesh.py; one rank a device) each rank is given its
+own contiguous share of the R groups (`shard_batch`), and the step sums
+over the ranks what the groups give: the gradients and the metrics are
+all-reduced with SUM, the BN updates summed over every group and divided by
+R. So `clip_norm` sees the global norm, every rank ends the step with the
+same tree, and N ranks take the step that R groups take on one device. This
+is not DDP, which averages gradients and broadcasts rank 0's BN buffers.
 
 Parameters and momentum are updated IN PLACE (the JAX package donates its
 buffers instead): `step` returns the trees it was given. Every leaf except
@@ -60,6 +68,10 @@ def _mean_over_groups(trees: list):
     return tree_map(lambda *xs: torch.stack(xs).mean(dim=0), *trees)
 
 
+def _sum_over_groups(trees: list):
+    return tree_map(lambda *xs: torch.stack(xs).sum(dim=0), *trees)
+
+
 def _sum_metrics(per_group: list[dict]) -> dict:
     return {k: torch.stack([m[k] for m in per_group]).sum(dim=0) for k in per_group[0]}
 
@@ -76,8 +88,10 @@ class _GroupTrainer:
     _DECAY_BN_AND_BIAS = True
 
     def __init__(self, *, momentum, weight_decay, remat, clip_norm, image_dtype,
-                 warmup_seen, device):
+                 warmup_seen, device, mesh=None):
         self.device = resolve_device(device)
+        # the data-parallel world (parallel.Mesh), or None for one process
+        self.mesh = mesh
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
@@ -118,14 +132,26 @@ class _GroupTrainer:
 
     def step(self, params, mom, batch: dict, seen: int, lr: float):
         """One train step; returns (params, mom, metrics) with the metrics
-        as 0-d tensors left on the device (summed over the groups)."""
+        as 0-d tensors left on the device (summed over the groups, and over
+        the ranks with a mesh). With a mesh, `batch` holds this rank's
+        groups only."""
         _, grads, bns, metrics = self.loss_and_grads(params, batch, seen)
+        if self.mesh is None:
+            bn = _mean_over_groups(bns)
+        else:
+            # this rank's groups summed, then everything summed over the
+            # ranks in one flat buffer a dtype (float32 and int64: two
+            # collectives a step)
+            n_groups = len(bns) * self.mesh.size
+            bn = _sum_over_groups(bns)
+            self.mesh.all_reduce_sum((grads, bn, metrics))
+            bn = tree_map(lambda x: x / n_groups, bn)
         sgd_update(
             params, grads, mom, lr,
             momentum=self.momentum, weight_decay=self.weight_decay,
             decay_bn_and_bias=self._DECAY_BN_AND_BIAS, clip_norm=self.clip_norm,
         )
-        self._apply_bn(params, _mean_over_groups(bns))
+        self._apply_bn(params, bn)
         return params, mom, metrics
 
 
@@ -160,10 +186,11 @@ class MetaTrainer(_GroupTrainer):
         image_dtype: torch.dtype = torch.float32,
         warmup_seen: int = 12800,
         device="cuda",
+        mesh=None,
     ):
         super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
                          clip_norm=clip_norm, image_dtype=image_dtype,
-                         warmup_seen=warmup_seen, device=device)
+                         warmup_seen=warmup_seen, device=device, mesh=mesh)
         self.spec = spec
         self.region = spec.region
         self.metain_type = metain_type
@@ -230,10 +257,11 @@ class PlainTrainer(_GroupTrainer):
         image_dtype: torch.dtype = torch.float32,
         warmup_seen: int = 12800,
         device="cuda",
+        mesh=None,
     ):
         super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
                          clip_norm=clip_norm, image_dtype=image_dtype,
-                         warmup_seen=warmup_seen, device=device)
+                         warmup_seen=warmup_seen, device=device, mesh=mesh)
         self.spec = spec
         self.region = spec.region
         self.zero_tcls = zero_tcls

@@ -24,12 +24,14 @@ def get_image_size(fname: str) -> tuple[int, int]:
 
 def load_image_resized(fname: str, width: int, height: int) -> np.ndarray:
     """float32 HWC [0,1] resized input (reference detect.py:26-27 semantics):
-    PIL's resize, or under FSD_NATIVE=1 the native pipeline's (no PIL
-    needed; a triangle filter, within a few uint8 counts of PIL's)."""
+    PIL's default resize (bicubic), or under FSD_NATIVE=1 the native
+    library's copy of it (no PIL needed; the same bytes wherever the two
+    decodes agree, native/src/resize.cpp)."""
     if os.environ.get("FSD_NATIVE", "0") == "1":
         from ..native import NativeImagePipe
 
-        return NativeImagePipe().load_plain(fname, width, height)
+        img = NativeImagePipe().load_resized_pil(fname, width, height)
+        return img.astype(np.float32) / 255.0
     from PIL import Image
 
     img = Image.open(fname).convert("RGB")

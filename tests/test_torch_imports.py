@@ -17,7 +17,8 @@ ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.p
                 "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
                 "train_torch.py", "partial_torch.py", "debug_torch.py", "demo_torch.py",
                 "scripts/full_workflow_torch.py", "scripts/int8_map_torch.py")
-TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref", "tests")
+TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref",
+                "torch_parallel_util", "tests")
 
 
 def _port_sources():
@@ -41,7 +42,7 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "          'data.mploader', 'data.prep', 'data.coco_prep', 'train.checkpoint',\n"
         "          'utils.profiling', 'utils.trace_summary', 'data.synth', 'cli.workflow',\n"
         "          'cli.partial', 'data.png', 'models.quant', 'ops.int8_mm', 'models.zoo',\n"
-        "          'models.caffe_net', 'ops.focal_loss'):\n"
+        "          'models.caffe_net', 'ops.focal_loss', 'parallel', 'parallel.mesh'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"
@@ -105,6 +106,9 @@ FORBIDDEN = {
     "torchvision": re.compile(r"^\s*(import|from)\s+torchvision\b", re.M),
     "torch.compile": re.compile(r"torch\.compile\("),
     "library batch norm": re.compile(r"F\.batch_norm\(|nn\.BatchNorm\dd\(|torch\.batch_norm\("),
+    # DDP averages gradients and broadcasts rank 0's BN buffers; the
+    # reference sums gradients and averages the running statistics
+    "DDP or sync-BN": re.compile(r"DistributedDataParallel|SyncBatchNorm"),
 }
 
 

@@ -29,6 +29,7 @@ from fewshot_detection_tpu.config import parse_cfg as j_parse_cfg
 from fewshot_detection_tpu.models import weights_io as j_weights_io
 from fewshot_detection_tpu.models.darknet import init_params as j_init_params
 from fewshot_detection_tpu.models.spec import build_spec as j_build_spec
+from fewshot_detection_tpu_torch.cli import train_meta_cli as t_meta_cli
 from fewshot_detection_tpu_torch.cli import train_plain_cli as t_cli
 
 from synth import make_voc_like
@@ -204,7 +205,7 @@ def test_waiting_switch_raises_not_implemented(ws, monkeypatch, name):
     test_torch_checkpoint.py), so none is refused any more: the CLI goes on
     to read its data cfg."""
     monkeypatch.setenv(name, "/tmp/x" if name == "FSD_ORBAX_DIR" else "1")
-    t_cli.refuse_waiting_switches("cpu")
+    t_meta_cli.refuse_device_list("cpu")
     with pytest.raises(FileNotFoundError, match="no_such.data"):
         t_cli.main(os.path.join(ws["root"], "no_such.data"), ws["cfg"], ws["init_w"], device="cpu")
 

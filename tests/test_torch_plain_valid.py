@@ -191,13 +191,14 @@ def test_run_valid_meta_draws_fresh_supports_every_batch(meta_ws, meta_files):
 
 @pytest.mark.parametrize("sweep", ["run_valid", "run_valid_meta", "run_valid_ensemble"])
 def test_eval_mesh_is_refused(plain_ws, meta_ws, sweep):
-    """FSD_EVAL_MESH (the sweep over several devices) is not ported: every
-    sweep refuses it before it reads a file."""
+    """FSD_EVAL_MESH=2 needs a world of 2 ranks (torchrun); a process started
+    alone is a world of one, so every sweep refuses it before it reads a
+    file. The sharded sweeps themselves: test_torch_parallel.py."""
     def call():
         if sweep == "run_valid":
             return t_valid.run_valid({}, plain_ws["cfg"], "none.weights", None, device="cpu")
         return getattr(t_valid, sweep)({}, meta_ws["dk"], meta_ws["ln"], "none.weights", None,
                                        device="cpu")
 
-    with pytest.raises(NotImplementedError, match="FSD_EVAL_MESH"):
+    with pytest.raises(ValueError, match="FSD_EVAL_MESH=2 needs a world of 2 ranks"):
         in_env(plain_ws["root"], {"FSD_EVAL_MESH": "2"}, call)

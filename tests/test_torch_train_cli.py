@@ -219,7 +219,7 @@ def test_waiting_switch_raises_not_implemented(ws, monkeypatch, name):
     test_torch_checkpoint.py), so none is refused any more: the CLI goes on
     to read its data cfg."""
     monkeypatch.setenv(name, "/tmp/x" if name == "FSD_ORBAX_DIR" else "1")
-    t_cli.refuse_waiting_switches("cpu")
+    t_cli.refuse_device_list("cpu")
     with pytest.raises(FileNotFoundError, match="no_such.data"):
         t_cli.main(os.path.join(ws["root"], "no_such.data"), ws["dk"], ws["ln"], ws["init_w"], device="cpu")
 
@@ -263,4 +263,15 @@ def test_schedule_and_replica_layout():
     assert t_cli.schedule_from_cfg(net, 2, 15).factor == 15.0
     assert t_common.replica_layout(64) == (1, 64)
     assert t_common.replica_layout(64, 4) == (4, 16)
-    assert t_common.replica_layout(6, 4) == (1, 6)
+    # a group count that does not divide the batch raises: the JAX
+    # package's fallback to one group means nothing for N processes
+    with pytest.raises(ValueError, match="divide the batch"):
+        t_common.replica_layout(6, 4)
+    # in a world of N ranks: N groups by default, or a multiple of N
+    world = types.SimpleNamespace(size=2)
+    assert t_common.replica_layout(64, mesh=world) == (2, 32)
+    assert t_common.replica_layout(64, 4, world) == (4, 16)
+    with pytest.raises(ValueError, match="split over 2 ranks"):
+        t_common.replica_layout(63, 3, world)
+    with pytest.raises(ValueError, match="divide the batch"):
+        t_common.replica_layout(6, 4, world)

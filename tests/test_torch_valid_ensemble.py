@@ -153,18 +153,18 @@ def test_training_mode_datasets_are_refused(ws, monkeypatch):
     switch to under FSD_NATIVE=1 (test_torch_native_data.py): that switch
     is no longer refused. What is still refused, rather than ignored, is
     training on more than one device."""
-    from fewshot_detection_tpu_torch.cli.train_meta_cli import refuse_waiting_switches
+    from fewshot_detection_tpu_torch.cli.train_meta_cli import refuse_device_list
 
     data_options, _, _, settings = ws["cfgs"]
     ds = DetectionDataset(data_options["valid"], settings, train=True)
     assert ds.train and len(ds) > 0
     ms = MetaDataset(data_options["meta"], settings, train=False, ensemble=False)
     assert not ms.ensemble and len(ms) > 0
-    refuse_waiting_switches()
+    refuse_device_list()
     monkeypatch.setenv("FSD_NATIVE", "1")
-    refuse_waiting_switches()
+    refuse_device_list()
     with pytest.raises(NotImplementedError):
-        refuse_waiting_switches(["cuda:0", "cuda:1"])
+        refuse_device_list(["cuda:0", "cuda:1"])
 
 
 def test_sweep_states_both_float32_precision_flags(ws, torch_files):

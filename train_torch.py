@@ -6,6 +6,8 @@ contract, train.py):
 
 Runs on the GPU and fails when there is none. FSD_DTYPE=bfloat16 trains in
 bfloat16 (BN statistics and the loss stay float32); float32 runs without TF32.
+On N GPUs: `torchrun --nproc_per_node=N train_torch.py ...`, one replica
+group a rank (parallel/mesh.py).
 """
 
 import sys

@@ -7,6 +7,9 @@ contract, valid_ensemble.py:185-217):
 
 Runs on the GPU (float32, TF32 off for convolutions and matrix products) and
 fails when there is none.
+On N GPUs: `FSD_EVAL_MESH=N torchrun --nproc_per_node=N
+valid_ensemble_torch.py ...` (each rank sweeps its block of every batch;
+rank 0 makes the class codes and writes the files).
 """
 
 import sys

@@ -6,6 +6,8 @@
 
 Runs on the GPU (float32, TF32 off for convolutions and matrix products) and
 fails when there is none.
+On N GPUs: `FSD_EVAL_MESH=N torchrun --nproc_per_node=N
+valid_meta_torch.py ...` (rank 0 draws each batch's support codes).
 """
 
 import sys

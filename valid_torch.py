@@ -6,6 +6,8 @@ contract, valid.py:87-110):
 
 Runs on the GPU (float32, TF32 off for convolutions and matrix products) and
 fails when there is none.
+On N GPUs: `FSD_EVAL_MESH=N torchrun --nproc_per_node=N valid_torch.py ...`
+(each rank sweeps its block of every batch; rank 0 writes the files).
 """
 
 import sys
