@@ -338,6 +338,35 @@ def cls_loss_summary(logfile, tail=50, n_cls=15):
             "n_lines": len(rows)}
 
 
+def score_split_only(devkit, test_imgs):
+    """Cut the devkit's test image sets to the held-out split."""
+    test_ids = {os.path.basename(p).split(".")[0] for p in test_imgs}
+    main_dir = os.path.join(devkit, "VOC2007", "ImageSets", "Main")
+    for fname in os.listdir(main_dir):
+        if fname.endswith("test.txt"):
+            path = os.path.join(main_dir, fname)
+            with open(path) as f:
+                rows = [ln for ln in f if ln.split()[0] in test_ids]
+            with open(path, "w") as f:
+                f.writelines(rows)
+
+
+def write_split_pools(cls_lists, train_imgs, listdir, traindict):
+    """Per-class support lists ({class: list file}) cut to the train split,
+    under `listdir`, and the dict file of the classes left with an image."""
+    train_set = set(train_imgs)
+    os.makedirs(listdir, exist_ok=True)
+    with open(traindict, "w") as df:
+        for cname, lst in cls_lists.items():
+            with open(lst) as f:
+                kept = [p for p in f.read().splitlines() if p.strip() and p in train_set]
+            out = os.path.join(listdir, f"{cname.replace(' ', '_')}_train.txt")
+            with open(out, "w") as f:
+                f.write("\n".join(kept) + "\n")
+            if kept:
+                df.write(f"{cname} {out}\n")
+
+
 # ------------------------------------------------------------------ stages
 
 
@@ -359,31 +388,10 @@ def stage_data(root):
         with open(path, "w") as f:
             f.write("\n".join(imgs) + "\n")
 
-    # the devkit's image sets score the held-out split only
-    test_ids = {os.path.basename(p).split(".")[0] for p in test_imgs}
-    main_dir = os.path.join(d["devkit"], "VOC2007", "ImageSets", "Main")
-    for fname in os.listdir(main_dir):
-        if fname.endswith("test.txt"):
-            path = os.path.join(main_dir, fname)
-            with open(path) as f:
-                rows = [ln for ln in f if ln.split()[0] in test_ids]
-            with open(path, "w") as f:
-                f.writelines(rows)
-
-    # per-class support lists from the train split only
-    train_set = set(train_imgs)
-    voclist = os.path.join(root, "voc", "voclist")
-    os.makedirs(voclist, exist_ok=True)
+    score_split_only(d["devkit"], test_imgs)
     traindict = os.path.join(root, "voc", "traindict_trainsplit.txt")
-    with open(traindict, "w") as df:
-        for cname, lst in d["cls_lists"].items():
-            with open(lst) as f:
-                kept = [p for p in f.read().split() if p in train_set]
-            out = os.path.join(voclist, f"{cname}_train.txt")
-            with open(out, "w") as f:
-                f.write("\n".join(kept) + "\n")
-            if kept:
-                df.write(f"{cname} {out}\n")
+    write_split_pools(d["cls_lists"], train_imgs, os.path.join(root, "voc", "voclist"),
+                      traindict)
 
     with open(os.path.join(root, "plain.data"), "w") as f:
         f.write("metayolo=0\ndata=voc\nneg=0\nrand=0\n"

@@ -1,10 +1,11 @@
-"""Synthetic VOC-like data for the workflow (`cli/workflow.py`).
+"""Synthetic VOC-like and COCO-like data for the workflows
+(`cli/workflow.py`, `cli/workflow_coco.py`).
 
-The port's copy of what the JAX workflow's data stage takes from the test
+The port's copy of what the JAX workflows' data stages take from the test
 helpers (`make_voc_like` with the "shape" and "huebin" class styles, their
-painters, and the VOCdevkit writer): the same numpy and `random` draws in
-the same order, so one seed gives the same images, labels, per-class lists
-and devkit. Images are written as 8-bit RGB PNG by `data/png.py` (zlib
+painters, the VOCdevkit writer, and the COCO-layout trees `make_coco_like`
+and `make_coco_rich`): the same numpy and `random` draws in the same order,
+so one seed gives the same images, labels, per-class lists and devkit. Images are written as 8-bit RGB PNG by `data/png.py` (zlib
 and struct, never PIL, which the port does not need); PNG is lossless, so
 the pixels are those the reference writes with PIL."""
 
@@ -23,6 +24,7 @@ VOC = ["aeroplane", "bicycle", "bird", "boat", "bottle",
        "dog", "horse", "motorbike", "person", "pottedplant",
        "sheep", "sofa", "train", "tvmonitor"]
 STYLES = ("shape", "huebin")
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _shape_mask(shape, u, v):
@@ -209,3 +211,150 @@ def make_devkit(root, img_paths, size, classes=None):
                 for imgid, flag in rows:
                     f.write(f"{imgid} {flag}\n")
     return devkit
+
+
+def coco_identity(cls):
+    """The 80 COCO classes' visual identities: (hue bin of 5, silhouette of
+    5, fill pattern of 4), all distinct. The hue bin survives the training
+    HSV shift; shape and texture survive any colour change."""
+    return cls % 5, (cls // 5) % 5, (cls // 25) % 4
+
+
+def paint_coco_object(arr, cls, x1, y1, x2, y2, rng):
+    hue_bin, shape, fill = coco_identity(cls)
+    paint_object(arr, shape, fill, x1, y1, x2, y2, _hue_color(hue_bin, rng))
+
+
+def load_coco_names():
+    with open(os.path.join(REPO, "data", "coco.names")) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def _write_row(path, row, mode="w"):
+    with open(path, mode) as f:
+        f.write("%d %.6f %.6f %.6f %.6f\n" % row)
+
+
+def make_coco_like(root, class_ids, size=(64, 48), seed=0, n_train=8):
+    """A COCO-layout tree (images/train2014, labels/train2014,
+    labels_1c/train2014/<class>/): one image a class id of `class_ids`, a
+    solid rectangle of the class's colour on dark noise. Returns the train
+    list (the first `n_train` images), a valid list (the first 4) and the
+    class -> list dict file."""
+    names = load_coco_names()
+    nprng = np.random.RandomState(seed)
+    rng = random.Random(seed)
+    img_dir = os.path.join(root, "images", "train2014")
+    lab_dir = os.path.join(root, "labels", "train2014")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+    cls_colors = (nprng.rand(len(names), 3) * 155 + 100).astype(np.uint8)
+
+    img_paths = []
+    cls_lists = {}
+    for i, cid in enumerate(class_ids):
+        w, h = size
+        arr = nprng.randint(0, 60, (h, w, 3), np.uint8)
+        name = f"COCO_train2014_{i:012d}"
+        path = os.path.join(img_dir, name + ".png")
+        img_paths.append(path)
+        cx, cy = rng.uniform(0.3, 0.7), rng.uniform(0.3, 0.7)
+        bw, bh = rng.uniform(0.2, 0.4), rng.uniform(0.2, 0.4)
+        x1, y1 = int((cx - bw / 2) * w), int((cy - bh / 2) * h)
+        x2, y2 = int((cx + bw / 2) * w), int((cy + bh / 2) * h)
+        arr[max(0, y1):y2, max(0, x1):x2] = cls_colors[cid]
+        write_png(path, arr)
+        row = (cid, cx, cy, bw, bh)
+        _write_row(os.path.join(lab_dir, name + ".txt"), row)
+        cname = names[cid]
+        d1c = os.path.join(root, "labels_1c", "train2014", cname)
+        os.makedirs(d1c, exist_ok=True)
+        _write_row(os.path.join(d1c, name + ".txt"), row)
+        lst = os.path.join(root, f"coco_{cname.replace(' ', '_')}_train.txt")
+        with open(lst, "a") as f:
+            f.write(path + "\n")
+        cls_lists[cname] = lst
+
+    train_list = os.path.join(root, "train.txt")
+    with open(train_list, "w") as f:
+        f.write("\n".join(img_paths[:n_train]) + "\n")
+    valid_list = os.path.join(root, "valid.txt")
+    with open(valid_list, "w") as f:
+        f.write("\n".join(img_paths[:4]) + "\n")
+    traindict = os.path.join(root, "traindict.txt")
+    with open(traindict, "w") as f:
+        for cname, lst in cls_lists.items():
+            f.write(f"{cname} {lst}\n")
+    return {"root": root, "train_list": train_list, "valid_list": valid_list,
+            "traindict": traindict, "img_paths": img_paths}
+
+
+def make_coco_rich(root, n_images=400, size=(256, 256), seed=0, classes_per_image=2,
+                   box_range=(0.18, 0.45)):
+    """A trainable COCO-layout tree over the 80-class universe: every class
+    painted in its own identity (`coco_identity`), the first box of image i
+    of class i % 80, labels and labels_1c/train2014/<class>/ files, per-class
+    lists, train.txt, traindict.txt and a VOCdevkit over the COCO names for
+    the AP scorer. Returns the paths as `make_voc_like` does, plus names."""
+    names = load_coco_names()
+    rng = random.Random(seed)
+    nprng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "images", "train2014")
+    lab_dir = os.path.join(root, "labels", "train2014")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+
+    n_cls = len(names)
+    per_class_imgs = {c: [] for c in range(n_cls)}
+    img_paths = []
+    lo, hi = box_range
+    for i in range(n_images):
+        w, h = size
+        arr = nprng.randint(0, 60, (h, w, 3), np.uint8)
+        name = f"COCO_train2014_{i:012d}"
+        path = os.path.join(img_dir, name + ".png")
+        img_paths.append(path)
+        rows = []
+        for j in range(rng.randint(1, classes_per_image)):
+            cls = (i % n_cls) if j == 0 else rng.randrange(n_cls)
+            cx, cy = rng.uniform(0.25, 0.75), rng.uniform(0.25, 0.75)
+            bw, bh = rng.uniform(lo, hi), rng.uniform(lo, hi)
+            rows.append((cls, cx, cy, bw, bh))
+            per_class_imgs[cls].append((path, (cls, cx, cy, bw, bh)))
+            x1 = max(0, int((cx - bw / 2) * w))
+            y1 = max(0, int((cy - bh / 2) * h))
+            x2 = min(w, int((cx + bw / 2) * w))
+            y2 = min(h, int((cy + bh / 2) * h))
+            paint_coco_object(arr, cls, x1, y1, x2, y2, rng)
+        write_png(path, arr)
+        with open(os.path.join(lab_dir, name + ".txt"), "w") as f:
+            for r in rows:
+                f.write("%d %.6f %.6f %.6f %.6f\n" % r)
+
+    cls_lists = {}
+    for cid, items in per_class_imgs.items():
+        cname = names[cid]
+        d1c = os.path.join(root, "labels_1c", "train2014", cname)
+        os.makedirs(d1c, exist_ok=True)
+        paths = []
+        for path, row in items:
+            base = os.path.basename(path).replace(".png", ".txt")
+            _write_row(os.path.join(d1c, base), row, "a")
+            if path not in paths:
+                paths.append(path)
+        if paths:
+            lst = os.path.join(root, f"coco_{cname.replace(' ', '_')}_train.txt")
+            with open(lst, "w") as f:
+                f.write("\n".join(paths) + "\n")
+            cls_lists[cname] = lst
+
+    train_list = os.path.join(root, "train.txt")
+    with open(train_list, "w") as f:
+        f.write("\n".join(img_paths) + "\n")
+    traindict = os.path.join(root, "traindict.txt")
+    with open(traindict, "w") as f:
+        for cname, lst in cls_lists.items():
+            f.write(f"{cname} {lst}\n")
+    return {"root": root, "train_list": train_list, "traindict": traindict,
+            "img_paths": img_paths, "cls_lists": cls_lists, "names": names,
+            "devkit": make_devkit(root, img_paths, size, classes=names)}

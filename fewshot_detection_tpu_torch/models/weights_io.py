@@ -208,6 +208,30 @@ def save_weights(
     os.replace(tmp, path)
 
 
+def load_conv_from_coco(
+    buf: np.ndarray, start: int, layer: LayerSpec, vocids_in_coco: list[int]
+) -> tuple[dict, int]:
+    """COCO(425ch) -> VOC(125ch) detection-head surgery (cfg.py:419-435):
+    keep the 4+1 box channels and the 20 VOC class channels per anchor.
+    Reads bias then OIHW weight from `buf` at `start`; returns the HWIO
+    parameters and the offset after them."""
+    n_coco = 85  # 5 + 80
+    tmpb = buf[start : start + 425]
+    start += 425
+    n_w = 425 * 1024
+    tmpw = buf[start : start + n_w].reshape(425, 1024, 1, 1)
+    start += n_w
+    inds = np.concatenate([np.arange(5), np.asarray(vocids_in_coco) + 5])
+    allinds = np.concatenate([inds + i * n_coco for i in range(5)])
+    w = tmpw[allinds]  # (125, 1024, 1, 1) OIHW
+    p = {
+        "b": tmpb[allinds].copy(),
+        "w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+    }
+    del layer
+    return p, start
+
+
 def read_bf16_gz(path: str) -> bytes:
     """Decode a tracked ``.weights.bf16.gz`` artifact into `.weights` bytes.
 

@@ -181,13 +181,16 @@ def _launch_backward(x: torch.Tensor, dsum: torch.Tensor, dsq: torch.Tensor) -> 
 
 
 def bn_sums_reference(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `bn_sums`: float32 sums over all leading axes."""
+    """Plain PyTorch version of `bn_sums`: the sums over all leading axes
+    taken in float64 and rounded once to float32. A float32 `torch.sum`
+    rounds far enough that `var = q/n - mean^2` loses digits the JAX
+    package's reduction keeps on nearly flat activations."""
     _check(x)
-    xf = x.float()
+    xd = x.double()
     axes = tuple(range(x.ndim - 1))
     if not axes:
-        return xf.clone(), xf * xf
-    return xf.sum(dim=axes), (xf * xf).sum(dim=axes)
+        return x.float().clone(), (xd * xd).float()
+    return xd.sum(dim=axes).float(), (xd * xd).sum(dim=axes).float()
 
 
 def bn_sums_backward_reference(

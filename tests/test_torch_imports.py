@@ -16,7 +16,11 @@ PKG = os.path.join(REPO, "fewshot_detection_tpu_torch")
 ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.py",
                 "valid_meta_torch.py", "detect_torch.py", "eval_torch.py", "recall_torch.py",
                 "train_torch.py", "partial_torch.py", "debug_torch.py", "demo_torch.py",
-                "scripts/full_workflow_torch.py", "scripts/int8_map_torch.py")
+                "scripts/full_workflow_torch.py", "scripts/int8_map_torch.py",
+                "scripts/full_workflow_coco_torch.py", "scripts/voc_label_torch.py",
+                "scripts/voc_label_1c_torch.py", "scripts/gen_fewlist_torch.py",
+                "scripts/convert_fewlist_torch.py", "scripts/gen_traindict_torch.py",
+                "scripts/voc_eval_torch.py", "coco/process_data_torch.py")
 TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref",
                 "torch_parallel_util", "tests")
 
@@ -42,7 +46,8 @@ def test_importing_every_submodule_loads_no_jax_no_pil_no_jax_package():
         "          'data.mploader', 'data.prep', 'data.coco_prep', 'train.checkpoint',\n"
         "          'utils.profiling', 'utils.trace_summary', 'data.synth', 'cli.workflow',\n"
         "          'cli.partial', 'data.png', 'models.quant', 'ops.int8_mm', 'models.zoo',\n"
-        "          'models.caffe_net', 'ops.focal_loss', 'parallel', 'parallel.mesh'):\n"
+        "          'models.caffe_net', 'ops.focal_loss', 'parallel', 'parallel.mesh',\n"
+        "          'cli.workflow_coco'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'PIL')\n"

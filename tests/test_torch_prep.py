@@ -23,48 +23,9 @@ from fewshot_detection_tpu_torch.data import prep as t_prep
 
 from synth import VOC, make_voc_like
 from torch_port_util import REPO
+from torch_port_util import same_outputs as _same
 
 SETS = [("2007", "train"), ("2007", "test"), ("2012", "train")]  # 2012 is missing
-
-
-def _files(roots):
-    out = {}
-    for root in roots:
-        for d, _, names in os.walk(root):
-            for n in names:
-                p = os.path.join(d, n)
-                with open(p, "rb") as f:
-                    out[p] = (os.stat(p).st_mtime_ns, f.read())
-    return out
-
-
-def _outputs(roots, fn):
-    """(files fn wrote under the roots, with their bytes; what it printed;
-    what it returned); the trees are put back as they were."""
-    before = _files(roots)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        ret = fn()
-    after = _files(roots)
-    written = {p: b for p, (t, b) in after.items() if before.get(p, (None,))[0] != t}
-    for p in written:
-        if p in before:
-            with open(p, "wb") as f:
-                f.write(before[p][1])
-            os.utime(p, ns=(before[p][0], before[p][0]))
-        else:
-            os.remove(p)
-    return written, buf.getvalue(), ret
-
-
-def _same(roots, t_fn, j_fn):
-    roots = [roots] if isinstance(roots, str) else roots
-    got, want = _outputs(roots, t_fn), _outputs(roots, j_fn)
-    assert sorted(got[0]) == sorted(want[0]) and got[0]
-    for p in want[0]:
-        assert got[0][p] == want[0][p], p
-    assert got[1:] == want[1:]
-    return got
 
 
 @pytest.fixture(scope="module")

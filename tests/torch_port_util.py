@@ -2,8 +2,10 @@
 parameter tree and one numpy input go to the JAX package and to the
 PyTorch port, both on the CPU."""
 
+import contextlib
 import fcntl
 import hashlib
+import io
 import os
 
 import numpy as np
@@ -90,6 +92,48 @@ def assert_results_close(got, want, tol):
             n_lines += 1
     return n_lines
 
+
+
+def files_under(roots):
+    out = {}
+    for root in roots:
+        for d, _, names in os.walk(root):
+            for n in names:
+                p = os.path.join(d, n)
+                with open(p, "rb") as f:
+                    out[p] = (os.stat(p).st_mtime_ns, f.read())
+    return out
+
+
+def outputs_of(roots, fn):
+    """(files fn wrote under the roots, with their bytes; what it printed;
+    what it returned); the trees are put back as they were."""
+    before = files_under(roots)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn()
+    after = files_under(roots)
+    written = {p: b for p, (t, b) in after.items() if before.get(p, (None,))[0] != t}
+    for p in written:
+        if p in before:
+            with open(p, "wb") as f:
+                f.write(before[p][1])
+            os.utime(p, ns=(before[p][0], before[p][0]))
+        else:
+            os.remove(p)
+    return written, buf.getvalue(), ret
+
+
+def same_outputs(roots, t_fn, j_fn):
+    """The port's `t_fn` and the JAX package's `j_fn` on the same trees:
+    the same files written, byte for byte, the same prints and returns."""
+    roots = [roots] if isinstance(roots, str) else roots
+    got, want = outputs_of(roots, t_fn), outputs_of(roots, j_fn)
+    assert sorted(got[0]) == sorted(want[0]) and got[0]
+    for p in want[0]:
+        assert got[0][p] == want[0][p], p
+    assert got[1:] == want[1:]
+    return got
 
 
 JAX_LIB_BUILD_DIR = os.path.join(REPO, "fewshot_detection_tpu_torch", "_build")
