@@ -14,7 +14,11 @@ phases, each printing JSON lines:
            PyTorch) on the card: keep masks must be bit-equal at the main
            path's shapes, on an adversarial set and on the edges of the
            kernel's groups of 32 (K not a multiple of 32, rows with no live
-           candidate, rows that end inside a group, all-identical boxes);
+           candidate, rows that end inside a group, all-identical boxes),
+           and on rows longer than the kernel's shared-memory limit MAX_K
+           (up to (1, 12800), a 1024 x 2560 WIDER image's grid), which take
+           its workspace path; every shorter case is also run through the
+           workspace path and must give the same bits;
            `bn_sums` forward and backward against their plain versions,
            float32 and bfloat16, at the training path's shapes and at awkward
            ones that reach both forward kernels (the library says which ran:
@@ -179,8 +183,26 @@ phases, each printing JSON lines:
            ranks and result files line-equal to this process's sweep. Each
            world is joined within DP_WORLD_SECONDS; a rank that fails or runs
            past it fails the phase
+  analysis the eight analysis tools (scripts/*_torch.py) on the card under
+           FSD_NATIVE=1 on painted PNGs: multiscale_epoch at flagship width,
+           batch 32, every size 320-608 (first step, steady step, images/s
+           and peak memory a bucket; 29 + 29 bn_sums launches a step) and
+           its streaming epoch cut to MS_EPOCH_BATCHES (at least 3 sizes
+           crossed); support_snr on the tracked checkpoint, 15-way,
+           SNR_DRAWS draws, the first draw's codes held to the CPU's within
+           SNR_CODE_TOL; learning_check --full cut to LEARN_ARGS (a finite
+           mAP, each part's seconds); a tiny workflow root (TINY_ARGS) and
+           shot_sweep over it at SWEEP_SHOTS, its tuning cut; eval_widerface
+           on cfg/yolo-voc.cfg from seeded weights over a painted WIDER tree
+           (an image under MAX_K, two over it up to 12,800 candidates, one
+           omitted): one nms_rows launch an image, on the workspace path past
+           MAX_K, every image's boxes those of the host path; then
+           tuning_delta and seed_stats over the workflow phase's root and the
+           tiny root, and cls_curve over every training log, whose table must
+           count every loss line. The cuts are listed as `reduced`
   path_inputs  every path above (serve, plain_serve, int8_serve, train,
-           plain_train, ckpt, files, workflow, coco, dp: the ranks' inputs too) runs
+           plain_train, ckpt, files, workflow, coco, dp: the ranks' inputs
+           too, analysis: every multi-scale bucket, the WIDER rows) runs
            with its kernel inputs recorded
            (`PathInputs`, no launch of its own); afterwards each kernel is
            held against its plain version there, as in `kernels`: bn_sums at
@@ -576,27 +598,46 @@ def compare_kernel(boxes: torch.Tensor, dsel: torch.Tensor, timed: bool) -> dict
     return out
 
 
-def phase_kernels(seed: int) -> int:
+# the longest row a path gives: a 1024 x 2560 WIDER image on yolo-voc's grid
+# (5 anchors a cell at stride 32), past the kernel's shared-memory limit
+LONG_ROW = 5 * (1024 // 32) * (2560 // 32)
+
+
+def phase_kernels(seed: int) -> tuple[int, dict]:
+    """nms_rows against its plain version on every case; a row longer than
+    MAX_K takes the workspace path, and every shorter case is also run
+    through that path (`_launch(..., long=True)`), which must give the same
+    bits. Returns the worst mismatch and the timed (1, LONG_ROW) case."""
     rng = np.random.default_rng(seed)
     cases = [("clustered", 320, 256), ("clustered", 240, 256), ("clustered", 320, 845),
              ("clustered", 16, 845), ("clustered", 1, 1), ("adversarial", 64, 256),
              ("adversarial", 16, 845), ("adversarial", 8, 33), ("edges", 20, 256),
-             ("edges", 20, 100), ("edges", 10, 845), ("edges", 10, 31), ("clustered", 37, 77)]
+             ("edges", 20, 100), ("edges", 10, 845), ("edges", 10, 31), ("clustered", 37, 77),
+             ("clustered", 1, LONG_ROW), ("clustered", 3, nms_device.MAX_K + 1),
+             ("adversarial", 4, 6000), ("edges", 10, nms_device.MAX_K + 33)]
     worst = 0
     results = []
     for kind, r, k in cases:
-        boxes, conf = make_nms_rows(rng, r, k, kind)
-        res = compare_kernel(torch.from_numpy(boxes).cuda(), torch.from_numpy(conf).cuda(),
-                             timed=(kind == "clustered" and k >= 256))
+        boxes, conf = (torch.from_numpy(a).cuda() for a in make_nms_rows(rng, r, k, kind))
+        res = compare_kernel(boxes, conf, timed=(kind == "clustered" and k >= 256))
         res["case"] = kind
+        res["path"] = "workspace" if k > nms_device.MAX_K else "shared"
+        if k <= nms_device.MAX_K:
+            got = nms_device._launch(boxes, conf, NMS_THRESH, True)
+            res["workspace_path_mismatch"] = int(
+                (got != nms_rows_reference(boxes, conf, NMS_THRESH)).sum())
+            worst = max(worst, res["workspace_path_mismatch"])
         results.append(res)
         worst = max(worst, res["max_mismatch"])
-    emit("kernels", name="nms_rows", thresh=NMS_THRESH, launches=nms_rows.launches, cases=results)
+    emit("kernels", name="nms_rows", thresh=NMS_THRESH, launches=nms_rows.launches,
+         long_launches=nms_rows.long_launches, cases=results)
     check(worst == 0, f"nms_rows disagrees with nms_rows_reference in {worst} slots")
     for kind in ("adversarial", "edges"):
         check(any(c["case"] == kind and 0 < c["kept"] < c["valid"] for c in results),
               f"the {kind} set suppressed nothing")
-    return worst
+    long = [c for c in results if c["shape"] == [1, LONG_ROW]][0]
+    check(long["kept"] > 0 and "card_ms" in long, "the long row was not timed")
+    return worst, long
 
 
 # ---------------------------------------------------------------------------
@@ -2713,27 +2754,27 @@ def stage_launches(stages: dict, fwd: int = 0, bwd: int = 0) -> dict:
             "nms": {"launches": total("nms_rows")}}
 
 
-def phase_workflow(smi: str) -> dict:
+def phase_workflow(smi: str, workdir: str) -> dict:
     """The paper's whole workflow in the flagship mode, stage by stage
-    through cli/workflow.main on the card. No base artifact is read or
-    written (both of the workflow's artifact directories point into the
-    run's own temporary directory)."""
+    through cli/workflow.main on the card, its root under `workdir` (the
+    `analysis` phase reads it again). No base artifact is read or written
+    (both of the workflow's artifact directories point under `workdir`)."""
     from fewshot_detection_tpu_torch.cli import workflow
 
     report = {"card": smi, "reduced": dict(zip(WORKFLOW_ARGS[::2], WORKFLOW_ARGS[1::2])),
               "stages": {}}
     artifacts = workflow.ARTIFACTS, workflow.SEED_ARTIFACTS
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as d:
-        workflow.ARTIFACTS = workflow.SEED_ARTIFACTS = os.path.join(d, "artifacts")
-        root = os.path.join(d, "root")
-        try:
-            for name, _ in workflow.STAGES:
-                report["stages"][name], summary = workflow_stage(
-                    name, lambda: workflow.main(
-                        ["--root", root, "--device", "cuda", "--stage", name, *WORKFLOW_ARGS]),
-                    root, WORKFLOW_EVAL_ENV if name.startswith("eval") else {})
-        finally:
-            workflow.ARTIFACTS, workflow.SEED_ARTIFACTS = artifacts
+    d = os.path.join(workdir, "workflow")
+    workflow.ARTIFACTS = workflow.SEED_ARTIFACTS = os.path.join(d, "artifacts")
+    root = os.path.join(d, "root")
+    try:
+        for name, _ in workflow.STAGES:
+            report["stages"][name], summary = workflow_stage(
+                name, lambda: workflow.main(
+                    ["--root", root, "--device", "cuda", "--stage", name, *WORKFLOW_ARGS]),
+                root, WORKFLOW_EVAL_ENV if name.startswith("eval") else {})
+    finally:
+        workflow.ARTIFACTS, workflow.SEED_ARTIFACTS = artifacts
     for name in ("evalb", "evalt"):
         m_ap = summary[name]["mean_ap"]
         check(np.isfinite(m_ap), f"workflow {name}: mAP {m_ap}")
@@ -3335,6 +3376,370 @@ def phase_dp(seed: int, smi: str, recorded: PathInputs) -> dict:
             "nms": {"launches": sum(launches)}}
 
 
+# ---------------------------------------------------------------------------
+# analysis: the eight analysis tools (scripts/*_torch.py) on the card
+# ---------------------------------------------------------------------------
+
+# the phase's cuts of the tools' depth, listed as `reduced`
+# multiscale_epoch's phase B (30 batches by default): 7 blocks of 64 samples,
+# whose sizes on the tool's seeds are 384, 576, 384, 384, 576, 448, 544
+MS_EPOCH_BATCHES = 14
+# learning_check --full (512 images, 800 batches by default): 218 images of
+# base classes, 3 batches of 64 an epoch for 12 epochs (the CLI drops a
+# short batch and saves every 10 epochs)
+LEARN_ARGS = ("--full", "--images", "256", "--max-batches", "40")
+LEARN_ENV = {"FSD_CLIP_NORM": "10"}
+# the tiny root at the counts of tests/test_torch_workflow.py's CPU run (and
+# its base batch of 16, so that 100 batches reach base training's first
+# checkpoint)
+TINY_ARGS = ("--tiny", "--seed", "2", "--n-train", "200", "--n-test", "8", "--base-batches",
+             "100", "--tune-max-epoch", "1", "--tune-repeat", "1")
+TINY_DK_BATCH = 16
+SWEEP_SHOTS = "1,2"
+SWEEP_TUNING = {"TUNE_MAX_EPOCH": 1, "TUNE_REPEAT": 1}  # the tool's tiny overrides: 10, 20
+SNR_DRAWS = 6
+# the first draw's codes on the card against the CPU's, over the largest
+# absolute code: cuDNN's float32 convolutions (TF32 off) sum in another order
+# than the CPU's, and training-mode BatchNorm divides by batch statistics
+SNR_CODE_TOL = 1e-3
+# the painted WIDER tree: (sub-directory, file, (height, width)). An image
+# under the kernel's shared-memory limit, portrait ones over it (1024 x 1376:
+# 32 * 43 * 5 = 6,880 candidates; 1024 x 2560, the largest the tool admits:
+# 12,800), and one over the omit limit
+WIDER_TREE = (("0--Parade", "0_Parade_1.png", (480, 640)),
+              ("0--Parade", "0_Parade_2.png", (1376, 1024)),
+              ("1--Handshaking", "1_Handshaking_1.png", (2560, 1024)),
+              ("1--Handshaking", "1_Handshaking_2.png", (2600, 1040)))
+WIDER_OMITTED = ("1_Handshaking_2.png",)
+ANALYSIS_ENV = {"FSD_NATIVE": "1", "FSD_DEVICE_NMS_K": str(PLAIN_TOP_K)}
+
+
+def load_tool(name: str) -> dict:
+    """scripts/<name>_torch.py's globals (its work sits under the __main__
+    check)."""
+    import runpy
+
+    return runpy.run_path(os.path.join(REPO, "scripts", f"{name}_torch.py"), run_name=name)
+
+
+def counted(fn, env: dict):
+    """fn() under `env` with every kernel count set to 0 just before and
+    read just after: (its result, what it printed, the counts, seconds)."""
+    torch.cuda.synchronize()
+    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    nms_rows.launches = nms_rows.long_launches = 0
+    box = {}
+    t0 = time.perf_counter()
+    out = run_cli(lambda: box.setdefault("result", fn()), env)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"bn_sums_fwd": bn_sums.launches, "bn_sums_bwd": bn_sums.backward_launches,
+              "layout_copies": bn_sums.layout_copies, "nms_rows": nms_rows.launches,
+              "nms_rows_long": nms_rows.long_launches}
+    return box.get("result"), out, counts, seconds
+
+
+def analysis_multiscale(root: str) -> dict:
+    """multiscale_epoch at flagship width, batch 32, every bucket, phase B
+    cut to MS_EPOCH_BATCHES: each bucket's steps finite with 29 + 29 bn_sums
+    launches, and at least 3 sizes crossed."""
+    tool = load_tool("multiscale_epoch")
+    result, out, counts, seconds = counted(lambda: tool["main"](
+        ["--batch", "32", "--batches", str(MS_EPOCH_BATCHES), "--root", root,
+         "--device", DEVICE]), ANALYSIS_ENV)
+    steps = 4 * len(result["buckets"]) + MS_EPOCH_BATCHES
+    check(counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * steps,
+          f"multiscale: {steps} steps launched {counts}")
+    check(list(result["buckets"]) == tool["SIZES"], f"buckets {list(result['buckets'])}")
+    check(all(np.isfinite(b["img_per_s"]) and b["peak_hbm_gib"] for b in
+              result["buckets"].values()), "multiscale bucket numbers")
+    check(len(result["epoch"]["sizes_crossed"]) >= 3, f"the epoch crossed too few sizes: {result}")
+    check(out.splitlines()[0].startswith(f"device: {DEVICE} "), out.splitlines()[0])
+    return {"msjson": result, "seconds": seconds, **counts}
+
+
+def analysis_support_snr(root: str, workdir: str) -> dict:
+    """support_snr on the tracked checkpoint (decoded into a .weights file)
+    with the flagship cfgs over the multiscale tree's supports, 15-way,
+    SNR_DRAWS draws on the card; the first draw again on the CPU."""
+    tool = load_tool("support_snr")
+    wpath = os.path.join(workdir, "base_latest.weights")
+    with open(wpath, "wb") as f:
+        f.write(read_bf16_gz(WEIGHTS))
+    datacfg = os.path.join(root, "m.data")
+    args = (datacfg, DARKNET_CFG, LEARNET_CFG, wpath)
+    codes, out, counts, seconds = counted(
+        lambda: tool["draw_codes"](*args, n_draws=SNR_DRAWS, device=DEVICE), ANALYSIS_ENV)
+    summary = tool["summarize"](codes)
+    check(summary["n_cls"] == TRAIN_N_CLS and summary["n_draws"] == SNR_DRAWS,
+          f"support_snr summary {summary}")
+    check(counts["bn_sums_fwd"] > 0, "support_snr launched no bn_sums kernel")
+    t0 = time.perf_counter()
+    cpu, _, _, _ = counted(lambda: tool["draw_codes"](*args, n_draws=1, device="cpu"),
+                           ANALYSIS_ENV)
+    cpu_seconds = time.perf_counter() - t0
+    scale = float(np.abs(cpu).max())
+    dev = float(np.abs(codes[0] - cpu[0]).max()) / scale
+    check(np.isfinite(codes).all() and dev <= SNR_CODE_TOL,
+          f"support_snr: the first draw's codes {dev} of the largest code from the CPU's")
+    printed = run_cli(lambda: tool["main"](["support_snr_torch.py", *args, "--device", DEVICE]),
+                      ANALYSIS_ENV)
+    check(json.loads(printed.strip().splitlines()[-1]) == summary,
+          "support_snr's line differs from the draws it was held to")
+    return {"summary": summary, "codes_shape": list(codes.shape),
+            "first_draw_dev_over_max_abs": dev, "tolerance": SNR_CODE_TOL,
+            "cpu_seconds": cpu_seconds, "seconds": seconds, **counts}
+
+
+def analysis_learning_check(root: str) -> tuple[dict, str]:
+    """learning_check --full, cut to LEARN_ARGS, with the gradient's global
+    norm clipped at 10 as the workflow clips it from random weights
+    (unclipped, the float32 loss of random flagship weights runs off to
+    inf within a few dozen steps): finite losses and mAP, each part's
+    seconds. Returns the report and its training log."""
+    tool = load_tool("learning_check")
+    result, out, counts, seconds = counted(lambda: tool["main"](
+        [*LEARN_ARGS, "--root", root, "--device", DEVICE]), {**ANALYSIS_ENV, **LEARN_ENV})
+    log = os.path.join(root, "learning_check.log")
+    with open(log, "w") as f:
+        f.write(out)
+    line = json.loads(out.strip().splitlines()[-1])
+    check(np.isfinite(line["mean_ap"]) and line["full_scale"], f"learning_check {line}")
+    losses = [float(v) for _, v in LOSS_RE.findall(out)]
+    n_steps = len(losses)
+    check(all(np.isfinite(losses)), f"learning_check: losses {losses}")
+    check(n_steps > 0 and counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * n_steps
+          and counts["nms_rows"] > 0, f"learning_check: {n_steps} steps launched {counts}")
+    return {"line": line, "steps": n_steps, "first_loss": losses[0], "last_loss": losses[-1],
+            "part_seconds": result["seconds"],
+            "seconds": seconds, **counts}, log
+
+
+def analysis_tiny_root(root: str) -> dict:
+    """cli/workflow.py --tiny on the card at TINY_ARGS, every stage."""
+    from fewshot_detection_tpu_torch.cli import workflow
+
+    configure = workflow.configure
+
+    def at_batch(args):
+        configure(args)
+        workflow.DK_BATCH = TINY_DK_BATCH
+
+    workflow.configure = at_batch
+    try:
+        summary, _, counts, seconds = counted(
+            lambda: workflow.main(["--root", root, "--device", DEVICE, *TINY_ARGS]), {})
+    finally:
+        workflow.configure = configure
+        workflow.configure(workflow.parse_args([]))  # the module's defaults
+    check(list(summary) == ["data", "base", "few", "tune", "evalb", "evalt"],
+          f"tiny root stages {list(summary)}")
+    check(all(np.isfinite(summary[s]["mean_ap"]) for s in ("evalb", "evalt")), "tiny mAPs")
+    check(counts["nms_rows"] > 0 and counts["bn_sums_fwd"] > 0, f"tiny root: {counts}")
+    return {"maps": {s: summary[s]["mean_ap"] for s in ("evalb", "evalt")},
+            "seconds": seconds, **counts}
+
+
+def analysis_shot_sweep(root: str) -> dict:
+    """shot_sweep on the tiny root at SWEEP_SHOTS, its tuning cut."""
+    from fewshot_detection_tpu_torch.cli import workflow
+
+    tool = load_tool("shot_sweep")
+    tool["TINY_OVERRIDES"].update(SWEEP_TUNING)
+    defaults = {k: getattr(workflow, k) for k in workflow.DEFAULTS}
+    table, out, counts, seconds = counted(lambda: tool["main"](
+        ["--root", root, "--shots", SWEEP_SHOTS, "--device", DEVICE]), {})
+    check({k: getattr(workflow, k) for k in workflow.DEFAULTS} == defaults,
+          "shot_sweep left the workflow's settings changed")
+    line = json.loads(out.rsplit("SHOTSWEEP ", 1)[1].splitlines()[0])
+    check(line == json.loads(json.dumps(table)), "SHOTSWEEP line")
+    check([r["shot"] for r in table["per_shot"]] == [int(s) for s in SWEEP_SHOTS.split(",")]
+          and all(np.isfinite(r["mean"]) for r in table["per_shot"]), f"shot sweep {table}")
+    check(counts["nms_rows"] > 0 and counts["bn_sums_fwd"] > 0, f"shot_sweep: {counts}")
+    return {"shotsweep": table, "seconds": seconds, **counts}
+
+
+def paint_wider(valdir: str, seed: int) -> None:
+    rng = np.random.default_rng(seed)
+    for sub, name, (h, w) in WIDER_TREE:
+        os.makedirs(os.path.join(valdir, sub), exist_ok=True)
+        img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        for _ in range(6):  # bright rectangles on dark noise
+            y, x = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 40))
+            img[y:y + int(rng.integers(20, 200)), x:x + int(rng.integers(20, 200))] = \
+                rng.integers(120, 256, 3)
+        png.write_png(os.path.join(valdir, sub, name), img)
+
+
+class RecordedPipelines:
+    """Stands in for DevicePipeline.eval_boxes while the WIDER tool runs:
+    each image's raw output and the boxes the device gave for it."""
+
+    def __init__(self):
+        self.images = []
+        self._eval = device_pipeline.DevicePipeline.eval_boxes
+
+    def __enter__(self):
+        rec, ev = self, self._eval
+
+        def eval_boxes(pipe, output):
+            boxes = ev(pipe, output)
+            rec.images.append((output, pipe.top_k, boxes[0]))
+            return boxes
+
+        device_pipeline.DevicePipeline.eval_boxes = eval_boxes
+        return self
+
+    def __exit__(self, *exc):
+        device_pipeline.DevicePipeline.eval_boxes = self._eval
+
+
+def analysis_widerface(workdir: str, seed: int) -> dict:
+    """eval_widerface on cfg/yolo-voc.cfg from the seeded weights over the
+    painted WIDER tree: one nms_rows launch an admitted image (on the
+    workspace path past MAX_K), every image's boxes those of the host path
+    (get_region_boxes + nms on the same output), a box file and an
+    annotated PNG an admitted image."""
+    tool = load_tool("eval_widerface")
+    valdir, savedir = os.path.join(workdir, "wider_val"), os.path.join(workdir, "wider_out")
+    paint_wider(valdir, seed)
+    spec = build_spec(parse_cfg(PLAIN_CFG))
+    wpath = os.path.join(workdir, "yolo-voc.weights")
+    save_weights(wpath, [spec], [plain_params(spec, seed)], seen=PLAIN_SEEN)
+    with RecordedPipelines() as rec:
+        _, out, counts, seconds = counted(lambda: tool["main"](
+            ["eval_widerface_torch.py", PLAIN_CFG, wpath, valdir, savedir, "--device", DEVICE]),
+            ANALYSIS_ENV)
+    # the images in the order the tool walked them: each admitted one ends
+    # with its annotated image's path
+    saved = [ln.split("save plot results to ", 1)[1] for ln in out.splitlines()
+             if ln.startswith("save plot results to ")]
+    admitted = [n for _, n, _ in WIDER_TREE if n not in WIDER_OMITTED]
+    check(sorted(map(os.path.basename, saved)) == sorted(admitted), f"WIDER saved {saved}")
+    ks = [k for _, k, _ in rec.images]
+    n_long = sum(k > nms_device.MAX_K for k in ks)
+    check(len(rec.images) == len(admitted) and counts["nms_rows"] == len(admitted)
+          and counts["nms_rows_long"] == n_long >= 2 and max(ks) == 12800,
+          f"WIDER: buffers {ks}, launches {counts}")
+    for name in WIDER_OMITTED:
+        check(f"omit {name}" in out, f"{name} was not omitted")
+    images = []
+    for (output, k, boxes), path in zip(rec.images, saved):
+        name, region = os.path.basename(path), spec.region
+        host = nms(get_region_boxes(output, 0.05, region.num_classes, region.anchor_wh)[0], 0.4)
+        worst = max((float(np.max(np.abs(np.asarray(d) - np.asarray(h, float))))
+                     for d, h in zip(boxes, host)), default=0.0)
+        check(len(host) == len(boxes) and all(d[6] == h[6] for d, h in zip(boxes, host))
+              and worst <= 1e-6,
+              f"WIDER {name}: {len(boxes)} boxes on the device, {len(host)} on the host path, "
+              f"{worst} apart")
+        with open(os.path.splitext(path)[0] + ".txt") as f:
+            check(int(f.readline()) == len(boxes), f"WIDER {name}: box file count")
+        check(os.path.getsize(path) > 0, f"WIDER {name}: image")
+        images.append({"image": name, "candidates": k, "kept": len(boxes),
+                       "host_equal_exact": all(list(map(float, d)) == list(map(float, h))
+                                               for d, h in zip(boxes, host)),
+                       "host_max_abs_diff": worst})
+        del output
+    return {"images": images, "nms_launches_shared": counts["nms_rows"] - n_long,
+            "nms_launches_long": n_long, "seconds": seconds, **counts}
+
+
+def run_tool_text(name: str, argv: list) -> tuple[str, object]:
+    """(stdout, exit code or None) of scripts/<name>_torch.py as __main__."""
+    import runpy
+
+    old = sys.argv
+    sys.argv = [f"{name}_torch.py", *argv]
+    buf, code = io.StringIO(), None
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(os.path.join(REPO, "scripts", f"{name}_torch.py"), run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = old
+    return buf.getvalue(), code
+
+
+def analysis_readers(roots: list, logs: list) -> dict:
+    """tuning_delta over each root, seed_stats over all of them, cls_curve
+    over every training log: their outputs parse, and cls_curve's table
+    counts every loss line of each log."""
+    t0 = time.perf_counter()
+    out = {"tuning_delta": {}, "cls_curve": {}}
+    for root in roots:
+        text, code = run_tool_text("tuning_delta", ["--root", root])
+        rows = [ln for ln in text.splitlines() if ln.startswith("| ")]
+        check(code is None and len(rows) == 1 + 20 + 2 and "| mean novel |" in text,
+              f"tuning_delta on {root}: {text[:300]}")
+        out["tuning_delta"][os.path.basename(root)] = rows[-2:]
+    text, code = run_tool_text("seed_stats", ["--roots", ",".join(roots)])
+    stats = json.loads(text.split("SEEDSTATS ", 1)[1])
+    check(code is None and stats["n_seeds"] == len(roots), f"seed_stats: {text[:300]}")
+    out["seed_stats"] = {k: stats[k] for k in ("n_seeds", "novel_delta", "mean_after")}
+    for log in logs:
+        with open(log) as f:
+            loss_lines = [m.group(0) for m in LOSS_RE.finditer(f.read())]
+        n_loss = len(loss_lines)
+        text, code = run_tool_text("cls_curve", [log, "--bucket", "640"])
+        rows = text.splitlines()[2:]
+        counted_lines = sum(int(r.split()[2]) for r in rows)
+        check(code is None and n_loss > 0 and counted_lines == n_loss,
+              f"cls_curve on {log}: {counted_lines} of {n_loss} loss lines, e.g. "
+              f"{loss_lines[-3:]}")
+        out["cls_curve"][os.path.relpath(log, os.path.dirname(os.path.dirname(log)))] = {
+            "loss_lines": n_loss, "buckets": len(rows)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_analysis(seed: int, smi: str, workdir: str) -> dict:
+    """The eight analysis tools on the card, under FSD_NATIVE=1 on painted
+    PNGs; the readers also over the `workflow` phase's root when that phase
+    ran (`workdir`). Returns the kernels' launches of the phase and the
+    long-row launches."""
+    t0 = time.perf_counter()
+    d = os.path.join(workdir, "analysis")
+    os.makedirs(d)
+    report = {"card": smi, "reduced": {
+        "multiscale_epoch": {"--batches": MS_EPOCH_BATCHES},
+        "learning_check": {**dict(zip(LEARN_ARGS[1::2], LEARN_ARGS[2::2])), **LEARN_ENV},
+        "tiny_root": {**dict(zip(TINY_ARGS[1::2], TINY_ARGS[2::2])), "batch": TINY_DK_BATCH},
+        "shot_sweep": {"--shots": SWEEP_SHOTS, **SWEEP_TUNING}}}
+    parts = {}
+
+    def part(name, got):  # each tool's report as soon as it is done
+        parts[name] = got
+        emit("analysis", part=name, **got)
+        torch.cuda.empty_cache()
+
+    ms_root = os.path.join(d, "multiscale")
+    part("multiscale_epoch", analysis_multiscale(ms_root))
+    part("support_snr", analysis_support_snr(ms_root, d))
+    learn, learn_log = analysis_learning_check(os.path.join(d, "learn"))
+    part("learning_check", learn)
+    tiny = os.path.join(d, "tiny")
+    part("tiny_root", analysis_tiny_root(tiny))
+    part("shot_sweep", analysis_shot_sweep(tiny))
+    part("eval_widerface", analysis_widerface(d, seed))
+    roots = [r for r in (os.path.join(workdir, "workflow", "root"), tiny)
+             if os.path.exists(os.path.join(r, "state", "evalt.done"))]
+    logs = [os.path.join(r, "logs", f"{n}.log") for r in roots
+            for n in ("plain", "base", "tune", "tune_shot1", "tune_shot2")
+            if os.path.exists(os.path.join(r, "logs", f"{n}.log"))] + [learn_log]
+    part("readers", analysis_readers(roots, logs))
+    report["seconds"] = time.perf_counter() - t0
+    report["part_seconds"] = {k: v["seconds"] for k, v in parts.items()}
+    emit("analysis", **report)
+    tools = [p for p in parts.values() if "bn_sums_fwd" in p]
+    return {"bn": {"fwd": sum(p["bn_sums_fwd"] for p in tools),
+                   "bwd": sum(p["bn_sums_bwd"] for p in tools),
+                   "layout_copies": sum(p["layout_copies"] for p in tools)},
+            "nms": {"launches": sum(p["nms_rows"] for p in tools)},
+            "long": {"launches": sum(p["nms_rows_long"] for p in tools)}}
+
+
 # the multi-scale schedule's sizes run from 320 to 608 px; the workflow's
 # cut run stays at 416, so its layers are also held at the top of the range
 MULTISCALE_TOP = 608
@@ -3379,7 +3784,8 @@ def phase_path_inputs(recorded: dict, seed: int) -> dict:
     return {"cases": cases, "nms_worst": worst}
 
 
-def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict) -> dict:
+def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
+                 long: dict) -> dict:
     """The summary of every kernel of the port. `served` and `trained` map
     each serving and training path to what it returned: its launches (read
     right after the path ran), and for the serving paths the candidate rows
@@ -3421,7 +3827,36 @@ def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict) 
         "share_of_bound": res["share_of_bound"],
         "plain_sweep_rows": {k: plain[k] for k in plain_keys},
         "coco_sweep_rows": {k: coco["nms"][k] for k in plain_keys},
-    }, *bn_kernel_entries(bn, trained, coco)]}
+    }, long_row_entry(long, worst), *bn_kernel_entries(bn, trained, coco)]}
+
+
+def long_row_entry(long: dict, worst: int) -> dict:
+    """`nms_rows` on a row longer than MAX_K: the same kernel with the row's
+    arrays in a workspace in device memory. Timed on the WIDER sweep's
+    longest row (`long["wider"]`, the analysis path's input), and on the
+    kernels phase's synthetic (1, LONG_ROW)."""
+    res, synth = long["wider"], long["synthetic"]
+    keys = ("shape", "valid", "kept", "kernel_ms", "card_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_term", "share_of_bound")
+    return {
+        "name": "nms_rows_long",
+        "route": "cuda",
+        "source": "fewshot_detection_tpu_torch/csrc/nms.cu",
+        "replaces": "fewshot_detection_tpu/ops/nms_device.py:57",
+        "launches": long["launches"],
+        "launches_by_path": {"analysis": long["launches"]},
+        "max_abs_err": float(max(worst, res["max_mismatch"])),
+        "ms": res["kernel_ms"],
+        "card_ms": res["card_ms"],
+        "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"],
+        "library_ms": None,
+        **{k: res[k] for k in ("shape", "valid", "kept", "iou_pairs", "longest_row",
+                               "chain_steps", "bound_term", "bytes_bound_ms", "flops_bound_ms",
+                               "chain_bound_ms", "share_of_bound")},
+        "synthetic_rows": {k: synth[k] for k in keys},
+    }
 
 
 def bn_kernel_entries(bn: dict, trained: dict, coco: dict) -> list:
@@ -3465,7 +3900,8 @@ def bn_kernel_entries(bn: dict, trained: dict, coco: dict) -> list:
 
 
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
-          "debug", "int8_serve", "native", "ckpt", "files", "workflow", "coco", "dp")
+          "debug", "int8_serve", "native", "ckpt", "files", "workflow", "coco", "dp",
+          "analysis")
 
 
 def main() -> int:
@@ -3490,7 +3926,7 @@ def main() -> int:
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
-        worst = phase_kernels(args.seed)
+        worst, long_synthetic = phase_kernels(args.seed)
         bn = phase_bn_kernels(args.seed)
     served, trained, recorded = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
@@ -3513,16 +3949,27 @@ def main() -> int:
     if "ckpt" in phases:
         with PathInputs() as recorded["ckpt"]:
             trained["ckpt"] = phase_ckpt(args.seed, smi)
-    for path, fn in (("files", phase_files), ("workflow", lambda seed, smi: phase_workflow(smi)),
-                     ("coco", phase_coco)):
-        if path in phases:
-            with PathInputs() as recorded[path]:
-                got = fn(args.seed, smi)
-            trained[path], served[path] = got["bn"], got["nms"]
-    if "dp" in phases:
-        with PathInputs() as recorded["dp"]:
-            got = phase_dp(args.seed, smi, recorded["dp"])
-        trained["dp"], served["dp"] = got["bn"], got["nms"]
+    # the workflow phase's root stays until the analysis phase has read it
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_work_")
+    try:
+        for path, fn in (("files", phase_files),
+                         ("workflow", lambda seed, smi: phase_workflow(smi, workdir)),
+                         ("coco", phase_coco)):
+            if path in phases:
+                with PathInputs() as recorded[path]:
+                    got = fn(args.seed, smi)
+                trained[path], served[path] = got["bn"], got["nms"]
+        if "dp" in phases:
+            with PathInputs() as recorded["dp"]:
+                got = phase_dp(args.seed, smi, recorded["dp"])
+            trained["dp"], served["dp"] = got["bn"], got["nms"]
+        if "analysis" in phases:
+            with PathInputs() as recorded["analysis"]:
+                got = phase_analysis(args.seed, smi, workdir)
+            trained["analysis"], served["analysis"] = got["bn"], got["nms"]
+            long_rows = got["long"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     held = phase_path_inputs(recorded, args.seed)
     if "coco" in phases:
         coco = phase_coco_kernels(recorded["coco"], args.seed)
@@ -3536,7 +3983,12 @@ def main() -> int:
         return 2
 
     bn["cases"] += held["cases"]
-    line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained, coco)
+    # the long-row path timed on the WIDER sweep's longest row
+    wider = max(recorded["analysis"].nms.items(), key=lambda kv: kv[0][1])[1]
+    long_rows.update(wider=compare_kernel(*wider, timed=True), synthetic=long_synthetic)
+    check(long_rows["wider"]["shape"] == [1, LONG_ROW] and long_rows["launches"] > 0,
+          f"the longest WIDER row {long_rows['wider']['shape']}")
+    line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained, coco, long_rows)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

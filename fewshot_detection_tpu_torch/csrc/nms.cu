@@ -48,6 +48,19 @@
 // Steps (t) and (c) are all the float arithmetic. The loop ends at the last
 // candidate with a positive confidence.
 //
+// Long rows. A row's per-candidate arrays (edges, sizes, confidence and
+// triangle word, 40 bytes a candidate) fit one block's shared memory up to
+// 5,600 candidates (ops/nms_device.py:MAX_K). A longer row, as a WIDER image
+// of up to 1024 x 2560 pixels gives (5 anchors on a stride-32 grid: 12,800
+// candidates), keeps the same arrays in a global workspace that the caller
+// hands in, one slice a row, and runs the same kernel on them: the same
+// steps, the same arithmetic, so the keep mask is the same bit for bit. A
+// row of 12,800 candidates is 0.5 MB of workspace, which stays in L2. Only
+// the block's own threads touch its slice, and every __syncthreads() makes
+// their writes to it visible to each other, as for shared memory. The
+// workspace is read and written through plain pointers, never through the
+// read-only data cache (which does not see writes made during the kernel).
+//
 // Arithmetic: the decision is `iou > thresh` in float32 and has to fall as in
 // the plain PyTorch version (ops/boxes.py:iou_xywh_t) bit for bit. Every
 // operation is therefore an explicitly rounded intrinsic in that function's
@@ -68,6 +81,17 @@ namespace {
 // One candidate in shared memory: the per-box terms of iou_xywh_t.
 struct Edges { float l, r, t, b; };   // cx -+ w/2, cy -+ h/2
 struct Size { float w, h, area, pad; };
+
+// Bytes a row of K candidates takes: edges, sizes, confidence, word.
+__host__ __device__ constexpr size_t row_smem(int K) {
+  return static_cast<size_t>(K) * (2 * sizeof(float4) + sizeof(float) + sizeof(uint32_t));
+}
+
+// The same in float4 words, rounded up, in shared memory or in the
+// workspace (whole words keep every row of the workspace aligned).
+__host__ __device__ constexpr size_t row_words(int K) {
+  return (row_smem(K) + sizeof(float4) - 1) / sizeof(float4);
+}
 
 // The terms of iou_xywh_t up to the intersection's sides.
 struct Pair { float cw, ch, areas; };
@@ -124,14 +148,17 @@ __device__ __forceinline__ uint32_t overlap_word(const Edges* sedge, const Size*
 // boxes (R, K, 4) float32 cxcywh, conf-descending within a row;
 // dsel (R, K) float32, 0 for masked-out slots; keep (R, K) one byte each.
 // 1 << LS threads share one candidate; the block has a multiple of 32 threads.
-template <int LS>
+// With GLOBAL the row's arrays live in `work` (row_words(K) float4 a row)
+// instead of dynamic shared memory; nothing else differs.
+template <int LS, bool GLOBAL>
 __global__ void __launch_bounds__(1024)
 nms_rows_kernel(const float4* __restrict__ boxes, const float* __restrict__ dsel,
-                uint8_t* __restrict__ keep, int K, float thresh) {
+                uint8_t* __restrict__ keep, int K, float thresh, float4* work) {
   extern __shared__ float4 smem[];
-  Edges* sedge = reinterpret_cast<Edges*>(smem);           // K
-  Size* ssize = reinterpret_cast<Size*>(smem + K);         // K
-  float* sconf = reinterpret_cast<float*>(smem + 2 * K);   // K, 0 = dead
+  float4* base = GLOBAL ? work + static_cast<size_t>(blockIdx.x) * row_words(K) : smem;
+  Edges* sedge = reinterpret_cast<Edges*>(base);           // K
+  Size* ssize = reinterpret_cast<Size*>(base + K);         // K
+  float* sconf = reinterpret_cast<float*>(base + 2 * K);   // K, 0 = dead
   uint32_t* sword = reinterpret_cast<uint32_t*>(sconf + K);  // K triangle words
   __shared__ int s_last;
   __shared__ uint32_t s_kept;
@@ -227,24 +254,25 @@ nms_rows_kernel(const float4* __restrict__ boxes, const float* __restrict__ dsel
   }
 }
 
-// Shared memory a row of K candidates takes: edges, sizes, confidence, word.
-size_t row_smem(int K) {
-  return static_cast<size_t>(K) * (2 * sizeof(float4) + sizeof(float) + sizeof(uint32_t));
-}
-
 template <int LS>
 int launch(const void* boxes, const void* dsel, void* keep, int R, int K,
-           float thresh, int threads, cudaStream_t stream) {
-  const size_t smem = row_smem(K);
+           float thresh, int threads, void* work, cudaStream_t stream) {
+  const float4* b = static_cast<const float4*>(boxes);
+  const float* d = static_cast<const float*>(dsel);
+  uint8_t* k = static_cast<uint8_t*>(keep);
+  if (work != nullptr) {
+    nms_rows_kernel<LS, true><<<R, threads, 0, stream>>>(
+        b, d, k, K, thresh, static_cast<float4*>(work));
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = row_words(K) * sizeof(float4);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nms_rows_kernel<LS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nms_rows_kernel<LS, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  nms_rows_kernel<LS><<<R, threads, smem, stream>>>(
-      static_cast<const float4*>(boxes), static_cast<const float*>(dsel),
-      static_cast<uint8_t*>(keep), K, thresh);
+  nms_rows_kernel<LS, false><<<R, threads, smem, stream>>>(b, d, k, K, thresh, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,16 +283,19 @@ constexpr int PAIRED_THREADS = 512;
 
 }  // namespace
 
-// Launches on `stream`, does not synchronise, allocates nothing. Returns the
-// cudaError_t of the launch (0 on success).
+// Launches on `stream`, does not synchronise, allocates nothing. `work` is
+// null for a row that fits shared memory; for a longer one it is a 16-byte
+// aligned workspace of R * row_words(K) float4 words (the caller's, reused
+// from call to call: the kernel writes every slot of a row it reads, so it
+// needs no zeroing). Returns the cudaError_t of the launch (0 on success).
 extern "C" int fsd_nms_rows(const void* boxes, const void* dsel, void* keep,
-                            int R, int K, float thresh, void* stream) {
+                            int R, int K, float thresh, void* work, void* stream) {
   if (R <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int paired = (2 * K + 31) / 32 * 32;
   if (paired <= PAIRED_THREADS) {
-    return launch<1>(boxes, dsel, keep, R, K, thresh, paired, st);
+    return launch<1>(boxes, dsel, keep, R, K, thresh, paired, work, st);
   }
   const int single = (K + 31) / 32 * 32;
-  return launch<0>(boxes, dsel, keep, R, K, thresh, single < 1024 ? single : 1024, st);
+  return launch<0>(boxes, dsel, keep, R, K, thresh, single < 1024 ? single : 1024, work, st);
 }

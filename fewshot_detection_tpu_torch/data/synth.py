@@ -2,7 +2,7 @@
 (`cli/workflow.py`, `cli/workflow_coco.py`).
 
 The port's copy of what the JAX workflows' data stages take from the test
-helpers (`make_voc_like` with the "shape" and "huebin" class styles, their
+helpers (`make_voc_like` with the "color", "shape" and "huebin" class styles, their
 painters, the VOCdevkit writer, and the COCO-layout trees `make_coco_like`
 and `make_coco_rich`): the same numpy and `random` draws in the same order,
 so one seed gives the same images, labels, per-class lists and devkit. Images are written as 8-bit RGB PNG by `data/png.py` (zlib
@@ -23,7 +23,7 @@ VOC = ["aeroplane", "bicycle", "bird", "boat", "bottle",
        "bus", "car", "cat", "chair", "cow", "diningtable",
        "dog", "horse", "motorbike", "person", "pottedplant",
        "sheep", "sofa", "train", "tvmonitor"]
-STYLES = ("shape", "huebin")
+STYLES = ("color", "shape", "huebin")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -85,6 +85,8 @@ def make_voc_like(root, n_images=10, classes_per_image=2, size=(64, 48), seed=0,
     """images/, labels/, labels_1c/, per-class lists, train.txt,
     traindict.txt and a VOCdevkit under `root`; returns their paths.
 
+    style="color": one fixed bright colour per class, a solid rectangle
+    (not robust to the training-time HSV augmentation).
     style="shape": class = silhouette x fill pattern in a random bright
     colour per instance. style="huebin": class = hue bin (cls//4) x
     silhouette (cls%4), solid fill."""
@@ -96,8 +98,9 @@ def make_voc_like(root, n_images=10, classes_per_image=2, size=(64, 48), seed=0,
     lab_dir = os.path.join(root, "labels")
     os.makedirs(img_dir, exist_ok=True)
     os.makedirs(lab_dir, exist_ok=True)
-    # drawn (and unused by these styles) so the later draws line up
-    nprng.rand(20, 3)
+    # one colour per class for style="color" (drawn for every style, so the
+    # later draws line up)
+    cls_colors = (nprng.rand(20, 3) * 155 + 100).astype(np.uint8)
 
     per_class_imgs = {c: [] for c in range(20)}
     img_paths = []
@@ -122,9 +125,11 @@ def make_voc_like(root, n_images=10, classes_per_image=2, size=(64, 48), seed=0,
             if style == "shape":
                 color = (nprng.rand(3) * 135 + 120).astype(np.uint8)
                 paint_shape_object(arr, cls, x1, y1, x2, y2, color)
-            else:
+            elif style == "huebin":
                 color = _hue_color(cls // 4, rng)
                 paint_shape_object(arr, (cls % 4) * 4, x1, y1, x2, y2, color)
+            else:
+                arr[y1:y2, x1:x2] = cls_colors[cls]
         write_png(path, arr)
         with open(os.path.join(lab_dir, f"im{i:03d}.txt"), "w") as f:
             for r in rows:

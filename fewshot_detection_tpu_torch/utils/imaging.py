@@ -119,3 +119,61 @@ def plot_boxes(img, boxes, savename: str | None = None, class_names: list[str] |
         print(f"save plot results to {savename}")
         img.save(savename)
     return img
+
+
+def draw_rectangle(rgb: np.ndarray, xy, color=(255, 0, 0)) -> None:
+    """PIL's `ImageDraw.Draw(img).rectangle(xy, outline=color)` (width 1)
+    on an (H, W, 3) uint8 array in place, pixel for pixel: the float
+    corners cut toward zero, the top and bottom rows drawn in full and the
+    sides between them, everything clipped at the border (Pillow's
+    ImagingDrawRectangle with its hline and line primitives). As Pillow,
+    it raises on x1 < x0 or y1 < y0."""
+    x0f, y0f, x1f, y1f = (float(v) for v in xy)
+    if x1f < x0f:
+        raise ValueError("x1 must be greater than or equal to x0")
+    if y1f < y0f:
+        raise ValueError("y1 must be greater than or equal to y0")
+    x0, y0, x1, y1 = int(x0f), int(y0f), int(x1f), int(y1f)
+    h, w = rgb.shape[:2]
+    for y in (y0, y1):  # Pillow's hline: clipped to the row
+        if 0 <= y < h and x1 >= 0 and x0 < w:
+            rgb[y, max(x0, 0):min(x1, w - 1) + 1] = color
+    # the sides: Pillow's vertical line from y0 + 1 toward y1, which stops
+    # one short of its end: rows y0+1 .. y1-1, none when y1 = y0 + 1, and
+    # when y1 = y0 the line runs backwards one step, row y0 + 1
+    first, end = y0 + 1, (y0 + 2 if y1 == y0 else y1)
+    lo, hi = max(first, 0), min(end, h)
+    if lo < hi:
+        for x in (x1, x0):
+            if 0 <= x < w:
+                rgb[lo:hi, x] = color
+
+
+def save_rgb(path: str, rgb: np.ndarray) -> None:
+    """An (H, W, 3) uint8 array into `path`: PNG through data/png.py (no
+    PIL needed), any other format through PIL by the file's extension."""
+    if os.path.splitext(path)[1].lower() == ".png":
+        from ..data.png import write_png
+
+        write_png(path, rgb)
+        return
+    from PIL import Image
+
+    Image.fromarray(rgb).save(path)
+
+
+def plot_boxes_array(rgb: np.ndarray, boxes, savename: str | None = None) -> np.ndarray:
+    """`plot_boxes(img, boxes, savename)` without class names, on an (H, W,
+    3) uint8 array: each reference-format box (normalized cx, cy, w, h) as
+    a red outline, pixel-equal to the PIL drawing; saved with `save_rgb`."""
+    height, width = rgb.shape[:2]
+    for box in boxes:
+        x1 = (box[0] - box[2] / 2.0) * width
+        y1 = (box[1] - box[3] / 2.0) * height
+        x2 = (box[0] + box[2] / 2.0) * width
+        y2 = (box[1] + box[3] / 2.0) * height
+        draw_rectangle(rgb, (x1, y1, x2, y2), (255, 0, 0))
+    if savename:
+        print(f"save plot results to {savename}")
+        save_rgb(savename, rgb)
+    return rgb

@@ -20,7 +20,11 @@ ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.p
                 "scripts/full_workflow_coco_torch.py", "scripts/voc_label_torch.py",
                 "scripts/voc_label_1c_torch.py", "scripts/gen_fewlist_torch.py",
                 "scripts/convert_fewlist_torch.py", "scripts/gen_traindict_torch.py",
-                "scripts/voc_eval_torch.py", "coco/process_data_torch.py")
+                "scripts/voc_eval_torch.py", "coco/process_data_torch.py",
+                "scripts/cls_curve_torch.py", "scripts/tuning_delta_torch.py",
+                "scripts/seed_stats_torch.py", "scripts/shot_sweep_torch.py",
+                "scripts/learning_check_torch.py", "scripts/support_snr_torch.py",
+                "scripts/eval_widerface_torch.py", "scripts/multiscale_epoch_torch.py")
 TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref",
                 "torch_parallel_util", "tests")
 
@@ -240,3 +244,43 @@ def test_workflow_defaults_to_cuda_and_raises_without_one(tmp_path, monkeypatch)
                        "--base-batches", "1"])  # the data stage runs, base refuses
     assert os.path.exists(workflow.done_marker(root, "data"))
     assert not os.path.exists(workflow.done_marker(root, "base"))
+
+
+def test_analysis_tools_default_to_cuda_and_raise_without_one(tmp_path):
+    """The five analysis tools that run a model take --device, default
+    cuda, and refuse before they write anything when there is no card."""
+    import inspect
+    import runpy
+
+    import torch
+
+    from fewshot_detection_tpu_torch.cli import workflow
+
+    tools = {n: runpy.run_path(os.path.join(REPO, "scripts", f"{n}_torch.py"), run_name="x")
+             for n in ("shot_sweep", "learning_check", "support_snr", "eval_widerface",
+                       "multiscale_epoch")}
+    for fn in (tools["support_snr"]["measure"], tools["support_snr"]["draw_codes"],
+               tools["eval_widerface"]["eval_widerface"]):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot be shown")
+    root = str(tmp_path / "tiny")
+    workflow.mark_done(root, "data", {"mode": "tiny"})
+    workflow.mark_done(root, "base", {"ckpt": "none.weights"})
+    defaults = {k: getattr(workflow, k) for k in workflow.DEFAULTS}
+    calls = [
+        lambda: tools["shot_sweep"]["main"](["--root", root]),
+        lambda: tools["learning_check"]["main"](["--root", str(tmp_path / "lc")]),
+        lambda: tools["support_snr"]["main"](["support_snr_torch.py", "no.data", "a.cfg",
+                                              "b.cfg"]),
+        lambda: tools["eval_widerface"]["main"](["eval_widerface_torch.py",
+                                                 os.path.join(REPO, "cfg", "tiny-yolo-voc.cfg"),
+                                                 "", str(tmp_path), str(tmp_path / "out")]),
+        lambda: tools["multiscale_epoch"]["main"](["--root", str(tmp_path / "ms")]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError):
+            call()
+    assert sorted(os.listdir(tmp_path)) == ["tiny"]
+    assert not os.path.exists(os.path.join(root, "shot1"))
+    assert {k: getattr(workflow, k) for k in workflow.DEFAULTS} == defaults

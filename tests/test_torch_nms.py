@@ -13,7 +13,8 @@ from fewshot_detection_tpu.ops.boxes import nms as j_host_nms
 from fewshot_detection_tpu.ops.nms_device import nms_jax, nms_pallas
 from fewshot_detection_tpu_torch.ops.boxes import iou_xywh, iou_xywh_t
 from fewshot_detection_tpu_torch.ops.boxes import nms as t_host_nms
-from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
+from fewshot_detection_tpu_torch.ops import nms_device
+from fewshot_detection_tpu_torch.ops.nms_device import MAX_K, nms_rows, nms_rows_reference
 
 from torch_port_util import t
 
@@ -158,3 +159,26 @@ def test_nms_rows_rejects_what_the_kernel_does_not_take(bad):
         args, exc = (boxes[0], conf[0]), ValueError
     with pytest.raises(exc):
         nms_rows(*args, THRESH)
+
+
+@pytest.mark.parametrize("k", [1, 845, MAX_K, MAX_K + 1, 12800])
+def test_nms_rows_picks_the_workspace_path_by_k(k, monkeypatch):
+    """Rows longer than MAX_K go to the kernel with a workspace, shorter
+    ones to shared memory: K alone decides (tensors on the meta device
+    reach the launch, which is stood in for here)."""
+    seen = []
+    monkeypatch.setattr(nms_device, "_launch", lambda b, d, thresh, long: seen.append(long))
+    nms_rows(torch.empty((2, k, 4), device="meta"), torch.empty((2, k), device="meta"), THRESH)
+    assert seen == [k > MAX_K]
+
+
+def test_reference_above_max_k_matches_host():
+    """A row longer than the shared-memory limit (a portrait WIDER image's
+    grid), spread boxes so that much is suppressed, a masked tail: the plain
+    version against both packages' host NMS."""
+    k = MAX_K + 64
+    boxes, conf = _rows(np.random.default_rng(15), 1, k, n_valid=[k - 40], cluster=False)
+    got = nms_rows_reference(t(boxes), t(conf), THRESH).numpy()
+    np.testing.assert_array_equal(got, _host_keep(t_host_nms, boxes, conf))
+    np.testing.assert_array_equal(got, _host_keep(j_host_nms, boxes, conf))
+    assert 0 < got.sum() < k - 40

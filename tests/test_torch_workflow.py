@@ -53,7 +53,7 @@ def _tree(root):
     return sorted(out)
 
 
-@pytest.mark.parametrize("style", ["huebin", "shape"])
+@pytest.mark.parametrize("style", ["huebin", "shape", "color"])
 def test_synth_equals_the_reference(tmp_path, style):
     a, b = str(tmp_path / "jax"), str(tmp_path / "torch")
     kw = dict(n_images=27, size=(72, 56), seed=5, style=style, box_range=(0.15, 0.45))
