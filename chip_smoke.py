@@ -200,9 +200,24 @@ phases, each printing JSON lines:
            tuning_delta and seed_stats over the workflow phase's root and the
            tiny root, and cls_curve over every training log, whose table must
            count every loss line. The cuts are listed as `reduced`
+  bench    the five measurement scripts of the JAX tree, ported, on the card:
+           bench_torch.py at its defaults (the meta-training step at batch
+           384, 416 px, bfloat16, remat, 3 + 10 steps, 29 + 29 bn_sums
+           launches a step; a fallback to a smaller batch is reported with
+           its OOM message), scripts/roofline_b384_torch.py (its FlopCounter
+           count equal to the spec's, mfu_pct and hbm_util_pct in (0, 100]),
+           bench_meta_pipeline_torch.py at its defaults (the host path's
+           counts in every row, 11 nms_rows launches), bench_int8_meta_torch.py on the tracked
+           checkpoint (every deviation finite) and
+           bench_input_pipeline_torch.py under FSD_NATIVE=1 with
+           BENCH_INPUT_ARGS (on a host without PIL `pil` is null beside its
+           reason); the batch that ran, images/s, mfu_pct, peak memory, the
+           card and its power limit; afterwards both kernels timed at the
+           path's largest inputs, (66,453,504, 32) bfloat16 and (240, 128)
   path_inputs  every path above (serve, plain_serve, int8_serve, train,
            plain_train, ckpt, files, workflow, coco, dp: the ranks' inputs
-           too, analysis: every multi-scale bucket, the WIDER rows) runs
+           too, analysis: every multi-scale bucket, the WIDER rows, bench:
+           the batch-384 step's BN inputs) runs
            with its kernel inputs recorded
            (`PathInputs`, no launch of its own); afterwards each kernel is
            held against its plain version there, as in `kernels`: bn_sums at
@@ -296,6 +311,7 @@ from fewshot_detection_tpu_torch.train.checkpoint import (
 )
 from fewshot_detection_tpu_torch.train.optim import tree_leaves_with_path, tree_map
 from fewshot_detection_tpu_torch.utils import format_loss_line
+from fewshot_detection_tpu_torch.utils.card import nvidia_smi
 from fewshot_detection_tpu_torch.utils.imaging import load_image_resized
 from fewshot_detection_tpu_torch.utils.profiling import WARMUP_KERNEL, trace, warm_up_cuda_trace
 from fewshot_detection_tpu_torch.utils.trace_summary import find_trace_files, load_events, summarize
@@ -525,10 +541,7 @@ def make_nms_rows(rng, r: int, k: int, kind: str = "clustered"):
 
 
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
     return smi
@@ -2806,9 +2819,12 @@ COCO_CLS_TOL = 0.25
 # saves every 2 epochs; both lists keep the 601 images with a base class,
 # and 19 * 32 >= 601 makes 2 epochs), and 32 test images (2 sweep batches;
 # the sweeps' host tail and the scoring grow with 80 classes of nearly 845
-# candidates a row). The tuning keeps its 2 epochs (max_epoch 4 / repeat 2,
-# the dynamic 20-box fewset); class counts, widths, shots and cfgs are not cut.
-COCO_REDUCED = {"N_TRAIN": 720, "N_TEST": 32, "PLAIN_BATCHES": 19, "BASE_BATCHES": 19}
+# candidates a row). The tuning keeps its 2 epochs, each over the fewset once
+# (max_epoch 2 / repeat 1, where the recipe has 4 / 2: half the steps, so the
+# whole smoke stays near 800 s with the bench phase); class counts, widths,
+# shots and cfgs are not cut.
+COCO_REDUCED = {"N_TRAIN": 720, "N_TEST": 32, "PLAIN_BATCHES": 19, "BASE_BATCHES": 19,
+                "TUNE_MAX_EPOCH": 2, "TUNE_REPEAT": 1}
 COCO_EVAL_CLASSES = {"evalb": 60, "evalt": 80}
 
 
@@ -3417,9 +3433,14 @@ ANALYSIS_ENV = {"FSD_NATIVE": "1", "FSD_DEVICE_NMS_K": str(PLAIN_TOP_K)}
 def load_tool(name: str) -> dict:
     """scripts/<name>_torch.py's globals (its work sits under the __main__
     check)."""
+    return load_script(os.path.join("scripts", f"{name}_torch.py"), name)
+
+
+def load_script(relpath: str, run_name: str = "smoke_script") -> dict:
+    """A script's globals (its work sits under the __main__ check)."""
     import runpy
 
-    return runpy.run_path(os.path.join(REPO, "scripts", f"{name}_torch.py"), run_name=name)
+    return runpy.run_path(os.path.join(REPO, relpath), run_name=run_name)
 
 
 def counted(fn, env: dict):
@@ -3740,6 +3761,147 @@ def phase_analysis(seed: int, smi: str, workdir: str) -> dict:
             "long": {"launches": sum(p["nms_rows_long"] for p in tools)}}
 
 
+# ---------------------------------------------------------------------------
+# bench: the JAX tree's five measurement scripts, ported (*_torch.py)
+# ---------------------------------------------------------------------------
+
+BENCH_INPUT_ARGS = ("--train", "--train-batches", "10")
+BENCH_INPUT_ENV = {"FSD_NATIVE": "1"}
+BENCH_STEPS = 13  # bench_torch: WARMUP 3 + ITERS 10
+ROOFLINE_STEPS = 8  # the counted step, 2 warm-up and 5 timed
+PEAK_RE = re.compile(r"^batch (\d+): peak device memory (\d+) bytes$", re.M)
+
+
+def bench_train_step(smi: str) -> dict:
+    """bench_torch.py at its defaults: batch 384 (or the batch it fell back
+    to, with the OOM message it printed), 29 + 29 bn_sums launches a step."""
+    script = load_script("bench_torch.py")
+    result, out, counts, seconds = counted(lambda: script["main"](["--device", DEVICE]), {})
+    lines = out.strip().splitlines()
+    check(lines[0] == f"card: {smi}", f"bench_torch's card line {lines[0]!r}")
+    check(json.loads(lines[-1]) == result and result["value"] > 0, f"bench_torch {result}")
+    batch = int(re.search(r"batch (\d+)\)$", result["unit"]).group(1))
+    peaks = {int(b): int(n) for b, n in PEAK_RE.findall(out)}
+    fell_back = [l for l in lines if "out of memory" in l]
+    check(batch == script["BATCH"] or fell_back, "bench_torch fell back without an OOM")
+    runs = 1 + len(fell_back)  # a failed batch launches some kernels too
+    check(counts["bn_sums_fwd"] >= BN_LAYERS * BENCH_STEPS and (
+        runs > 1 or counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * BENCH_STEPS),
+        f"bench_torch launched {counts}")
+    return {"line": result, "batch": batch, "fell_back": fell_back,
+            "peak_memory_bytes": peaks, "lines": lines[:-1], "seconds": seconds, **counts}
+
+
+def bench_roofline(smi: str) -> dict:
+    """roofline_b384_torch.py: the counted FLOPs equal the spec's, the
+    shares of the card's peaks positive and at most 100."""
+    script = load_script("scripts/roofline_b384_torch.py")
+    result, out, counts, seconds = counted(lambda: script["main"](["--device", DEVICE]), {})
+    lines = out.strip().splitlines()
+    check(lines[0] == f"card: {smi}" and lines[-1].startswith("ROOFLINE "),
+          f"roofline's lines {lines[0]!r} {lines[-1][:40]!r}")
+    spec = MetaSpec(build_spec(parse_cfg(DARKNET_CFG)), build_spec(parse_cfg(LEARNET_CFG)))
+    want = script["spec_flops"](spec, script["BATCH"], script["N_CLS"], script["SIZE"])
+    check(result["cost_flops_per_step"] == want
+          and result["gflop_per_image"] == round(want / script["BATCH"] / 1e9, 1),
+          f"roofline FLOPs {result['cost_flops_per_step']} against the spec's {want}")
+    for k in ("mfu_pct", "hbm_util_pct"):
+        check(result[k] is not None and 0 < result[k] <= 100, f"roofline {k} = {result[k]}")
+    check(result["bn_sums_launches_per_step"] == 2 * BN_LAYERS
+          and counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * ROOFLINE_STEPS,
+          f"roofline launched {counts}, counted {result['bn_sums_launches_per_step']}")
+    return {"line": result, "lines": lines[:-1], "seconds": seconds, **counts}
+
+
+def bench_meta_pipeline(smi: str) -> dict:
+    """bench_meta_pipeline_torch.py at its defaults (16 images x 15 classes,
+    conf 0.25, a buffer of 128): the host path's counts in every row, one
+    nms_rows launch a pipeline call (one untimed, 10 timed)."""
+    script = load_script("scripts/bench_meta_pipeline_torch.py")
+    result, out, counts, seconds = counted(lambda: script["main"](["--device", DEVICE]), {})
+    check(out.splitlines()[0] == f"card: {smi}", out.splitlines()[0])
+    check(result["mismatch"] == 0 and result["kept"] == result["host_kept"] > 0,
+          f"bench_meta_pipeline {result}")
+    check(counts["nms_rows"] == 11, f"bench_meta_pipeline launched {counts}")
+    return {"line": result, "lines": out.strip().splitlines()[1:], "seconds": seconds,
+            **counts}
+
+
+def bench_int8(smi: str) -> dict:
+    """bench_int8_meta_torch.py on the tracked checkpoint: every rate
+    positive, every deviation finite."""
+    script = load_script("scripts/bench_int8_meta_torch.py")
+    result, out, counts, seconds = counted(
+        lambda: script["main"](["--weights", WEIGHTS, "--device", DEVICE]), {})
+    check(out.splitlines()[0] == f"card: {smi}", out.splitlines()[0])
+    devs = {k: v for k, v in result.items() if k.endswith("_dev_pct")}
+    check(len(devs) == 4 and all(np.isfinite(v) for v in devs.values()),
+          f"bench_int8 deviations {devs}")
+    check(all(v > 0 for k, v in result.items() if k.endswith("_img_s")), f"bench_int8 {result}")
+    return {"line": result, "seconds": seconds, **counts}
+
+
+def bench_input(smi: str) -> dict:
+    """bench_input_pipeline_torch.py under FSD_NATIVE=1 on painted PNGs with
+    real train steps on the card: every mode positive, `pil` too unless the
+    host lacks PIL (then null beside `pil_error`)."""
+    script = load_script("scripts/bench_input_pipeline_torch.py")
+    result, out, counts, seconds = counted(
+        lambda: script["main"]([*BENCH_INPUT_ARGS, "--device", DEVICE]), BENCH_INPUT_ENV)
+    check(out.splitlines()[0] == f"card: {smi}", out.splitlines()[0])
+    check(result["pil"] is not None or result.get("pil_error"), f"bench_input {result}")
+    check(all(v > 0 for k, v in result.items() if k not in ("metric", "pil", "pil_error")),
+          f"bench_input {result}")
+    steps = script["TRAIN_WARMUP"] + int(
+        BENCH_INPUT_ARGS[BENCH_INPUT_ARGS.index("--train-batches") + 1])
+    check(counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * steps,
+          f"bench_input: {steps} steps launched {counts}")
+    return {"line": result, "seconds": seconds, **counts}
+
+
+def phase_bench(smi: str) -> dict:
+    """The five ported measurement scripts on the card, one after another,
+    the allocator's cache emptied between them. Returns the kernels'
+    launches of the phase."""
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (("bench", bench_train_step), ("roofline", bench_roofline),
+                     ("meta_pipeline", bench_meta_pipeline), ("int8", bench_int8),
+                     ("input_pipeline", bench_input)):
+        parts[name] = fn(smi)
+        emit("bench", part=name, card=smi, **parts[name])
+        torch.cuda.empty_cache()
+    b, r = parts["bench"], parts["roofline"]["line"]
+    emit("bench", card=smi, seconds=time.perf_counter() - t0,
+         part_seconds={k: v["seconds"] for k, v in parts.items()},
+         batch=b["batch"], img_per_s=b["line"]["value"], fell_back=b["fell_back"],
+         peak_memory_bytes=b["peak_memory_bytes"], mfu_pct=r["mfu_pct"],
+         hbm_util_pct=r["hbm_util_pct"], roofline_step_ms=r["step_ms"],
+         gflop_per_image=r["gflop_per_image"])
+    return {"bn": {"fwd": sum(p["bn_sums_fwd"] for p in parts.values()),
+                   "bwd": sum(p["bn_sums_bwd"] for p in parts.values()),
+                   "layout_copies": sum(p["layout_copies"] for p in parts.values())},
+            "nms": {"launches": sum(p["nms_rows"] for p in parts.values())}}
+
+
+def phase_bench_kernels(rec: PathInputs, seed: int) -> dict:
+    """Both kernels timed at the bench path's largest inputs, after it ran:
+    bn_sums forward and backward (plain versions and library calls beside
+    them) at its largest (M, C) in bfloat16, the bench's type, and nms_rows
+    on the meta pipeline's rows."""
+    m, c, dtype = max(rec.bn, key=lambda t: t[0] * t[1])
+    x = make_activation(seed + 300, m, c, dtype)
+    times = time_bn_sums(x)
+    del x
+    torch.cuda.empty_cache()
+    (r, k), (boxes, dsel) = max(rec.nms.items(), key=lambda kv: kv[0][0] * kv[0][1])
+    nms = compare_kernel(boxes, dsel, timed=True)
+    check(nms["max_mismatch"] == 0, "nms_rows disagrees on the meta pipeline's rows")
+    dt = str(dtype).split(".")[-1]
+    emit("bench_kernels", bn_shape=[m, c], dtype=dt, bn_times=times, nms=nms)
+    return {"bn_shape": [m, c], "dtype": dt, "bn_times": times, "nms": nms}
+
+
 # the multi-scale schedule's sizes run from 320 to 608 px; the workflow's
 # cut run stays at 416, so its layers are also held at the top of the range
 MULTISCALE_TOP = 608
@@ -3785,7 +3947,7 @@ def phase_path_inputs(recorded: dict, seed: int) -> dict:
 
 
 def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
-                 long: dict) -> dict:
+                 long: dict, bench: dict) -> dict:
     """The summary of every kernel of the port. `served` and `trained` map
     each serving and training path to what it returned: its launches (read
     right after the path ran), and for the serving paths the candidate rows
@@ -3793,7 +3955,8 @@ def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
     NMS kernel is timed on the ensemble sweep's rows, as in the earlier
     slices, on the plain sweep's and on the COCO sweep's (`coco`, from
     `phase_coco_kernels`); the rows are in L2 when the kernel starts, as
-    they are behind `_decode_rank`."""
+    they are behind `_decode_rank`; and on the bench meta pipeline's rows
+    (`bench`, from `phase_bench_kernels`)."""
     res = compare_kernel(*served["serve"]["rows"], timed=True)
     plain = compare_kernel(*served["plain_serve"]["rows"], timed=True)
     check(res["max_mismatch"] == 0 and plain["max_mismatch"] == 0,
@@ -3827,7 +3990,8 @@ def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
         "share_of_bound": res["share_of_bound"],
         "plain_sweep_rows": {k: plain[k] for k in plain_keys},
         "coco_sweep_rows": {k: coco["nms"][k] for k in plain_keys},
-    }, long_row_entry(long, worst), *bn_kernel_entries(bn, trained, coco)]}
+        "bench_pipeline_rows": {k: bench["nms"][k] for k in plain_keys},
+    }, long_row_entry(long, worst), *bn_kernel_entries(bn, trained, coco, bench)]}
 
 
 def long_row_entry(long: dict, worst: int) -> dict:
@@ -3859,11 +4023,11 @@ def long_row_entry(long: dict, worst: int) -> dict:
     }
 
 
-def bn_kernel_entries(bn: dict, trained: dict, coco: dict) -> list:
+def bn_kernel_entries(bn: dict, trained: dict, coco: dict, bench: dict) -> list:
     """`bn_sums_fwd` and `bn_sums_bwd`, timed at the main path's largest
-    shape in float32 (the bfloat16 times ride along, and both types at the
-    COCO path's largest shape), with the worst error over every compared
-    case."""
+    shape in float32 (the bfloat16 times ride along, both types at the
+    COCO path's largest shape, and bfloat16 at the bench step's, the
+    largest of any path), with the worst error over every compared case."""
     shape = list(BN_MAIN_SHAPES[0])
     key = f"{shape[0]}x{shape[1]}"
     f32, b16 = bn["times"]["float32"][key], bn["times"]["bfloat16"][key]
@@ -3895,13 +4059,16 @@ def bn_kernel_entries(bn: dict, trained: dict, coco: dict) -> list:
             "coco_top": {"shape": coco["bn_shape"], **{
                 dt: {k.split("_", 1)[1]: v for k, v in t.items() if k.startswith(way)}
                 for dt, t in coco["bn_times"].items()}},
+            "bench_top": {"shape": bench["bn_shape"], bench["dtype"]: {
+                k.split("_", 1)[1]: v for k, v in bench["bn_times"].items()
+                if k.startswith(way)}},
         })
     return entries
 
 
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
           "debug", "int8_serve", "native", "ckpt", "files", "workflow", "coco", "dp",
-          "analysis")
+          "analysis", "bench")
 
 
 def main() -> int:
@@ -3970,9 +4137,15 @@ def main() -> int:
             long_rows = got["long"]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    if "bench" in phases:
+        with PathInputs() as recorded["bench"]:
+            got = phase_bench(smi)
+        trained["bench"], served["bench"] = got["bn"], got["nms"]
     held = phase_path_inputs(recorded, args.seed)
     if "coco" in phases:
         coco = phase_coco_kernels(recorded["coco"], args.seed)
+    if "bench" in phases:
+        bench = phase_bench_kernels(recorded["bench"], args.seed)
     for path, got in served.items():
         check(got["launches"] > 0, f"the {path} path never launched the NMS kernel")
     for path, got in trained.items():
@@ -3988,7 +4161,8 @@ def main() -> int:
     long_rows.update(wider=compare_kernel(*wider, timed=True), synthetic=long_synthetic)
     check(long_rows["wider"]["shape"] == [1, LONG_ROW] and long_rows["launches"] > 0,
           f"the longest WIDER row {long_rows['wider']['shape']}")
-    line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained, coco, long_rows)
+    line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained, coco, long_rows,
+                        bench)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,11 @@ _UNROLL = 4
 # partials that the last block of a tile folds small
 _VEC_LANES = 8
 _DTYPES = (torch.float32, torch.bfloat16)
+# values one float32 accumulator of the forward takes at most. A longer
+# chain rounds further: at (66,453,504, 32) bfloat16 one wave of blocks gives
+# a chain 984 values, and the sums on an H100 fell outside 2e-6 of sum|x|;
+# at 512 values a chain they were within 1.2e-6
+_MAX_CHAIN = 512
 # ticket counters at the head of a workspace, and floats of partials after them
 _TICKET_SLOTS = 64
 _WORKSPACE_FLOATS = 1 << 17
@@ -99,19 +104,29 @@ def vector_width(c: int, itemsize: int, address: int = 0) -> int:
     return v if c % v == 0 and address % 16 == 0 else 1
 
 
-def row_blocks(m: int, c: int, vec: int = 1) -> int:
+def row_blocks(m: int, c: int, vec: int = 1, forward: bool = False) -> int:
     """Blocks along the rows (the kernels' grid.y, and the rows of the
     forward's table of partials): enough to fill the card once, never more
     than there are rows to hand out. `vec` is the channels a thread owns: 1
     for the backward and the scalar forward, `vector_width` for the vector
-    forward, whose blocks take `_UNROLL` loads a thread in one pass."""
+    forward, whose blocks take `_UNROLL` loads a thread in one pass.
+
+    `forward=True` also keeps every float32 accumulator of the forward to
+    `_MAX_CHAIN` values: a tall input gets more blocks (further waves) and
+    so fewer passes a block. A vector thread adds two values a pass to each
+    of its two accumulators; a scalar thread rotates four accumulators, one
+    value a pass."""
     cv = c // vec
     cw = min(cv, _TX if vec == 1 else _VEC_LANES)
     fold = _TX // cw
     tiles = -(-cv // cw)
     rows = _TY * fold * (1 if vec == 1 else _UNROLL)
     resident = _SCALAR_RESIDENT if vec == 1 else _VECTOR_RESIDENT
-    return max(1, min(-(-m // rows), -(-resident // tiles), 65535))
+    g = max(1, min(-(-m // rows), -(-resident // tiles), 65535))
+    if forward:
+        passes = 4 * _MAX_CHAIN if vec == 1 else _MAX_CHAIN // 2
+        g = min(max(g, -(-m // (rows * passes))), 65535)
+    return g
 
 
 def _workspace(device: torch.device, stream: int, c: int, floats: int) -> tuple[torch.Tensor, int]:
@@ -146,7 +161,7 @@ def _launch_forward(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return out[0], out[1]
     if x.data_ptr() % x.element_size():
         raise ValueError("bn_sums: misaligned tensor")
-    g = row_blocks(m, c, vector_width(c, x.element_size(), x.data_ptr()))
+    g = row_blocks(m, c, vector_width(c, x.element_size(), x.data_ptr()), forward=True)
     fwd, _ = _kernels()
     path = ctypes.c_int(-1)
 

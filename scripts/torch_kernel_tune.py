@@ -158,7 +158,7 @@ def tune_bn(seed: int) -> None:
         saved = bn_mod._VEC_LANES, bn_mod._VECTOR_RESIDENT
         bn_mod._VEC_LANES, bn_mod._VECTOR_RESIDENT = lanes, resident
         try:
-            return bn_mod.row_blocks(m, c, vec)
+            return bn_mod.row_blocks(m, c, vec, forward=True)
         finally:
             bn_mod._VEC_LANES, bn_mod._VECTOR_RESIDENT = saved
 

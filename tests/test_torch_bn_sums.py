@@ -156,6 +156,31 @@ def test_row_blocks_of_the_vector_forward(m, c, vec, want):
     assert row_blocks(m, c, vec) == want
 
 
+@pytest.mark.parametrize("m,c,vec,want", [
+    (64 * 416 * 416, 32, 8, 528),    # the batch-64 step's top: one wave, 82 passes
+    (64 * 416 * 416, 32, 4, 528),    # float32: 164 passes, still one wave
+    (13_844_480, 32, 4, 528),        # COCO's top: 205 passes
+    (384 * 416 * 416, 32, 8, 1014),  # the bench step's top: 256 passes, not 492
+    (384 * 416 * 416, 32, 4, 2028),
+    (384 * 416 * 416, 32, 1, 4056),  # the scalar forward: 2048 passes, 4 accumulators
+    (100, 3, 1, 2),
+])
+def test_forward_row_blocks_keep_every_float32_chain_short(m, c, vec, want):
+    """The forward's grid: the card filled once, and more blocks where a
+    wave would give one float32 accumulator more than _MAX_CHAIN values."""
+    g = row_blocks(m, c, vec, forward=True)
+    assert g == want and g >= row_blocks(m, c, vec)
+    cw = min(c // vec, 32 if vec == 1 else bn_mod._VEC_LANES)
+    rows = 8 * (32 // cw) * (1 if vec == 1 else 4)
+    passes = -(-(-(-m // rows)) // g)  # a block's passes
+    chain = -(-passes // 4) if vec == 1 else 2 * passes
+    assert chain <= bn_mod._MAX_CHAIN
+    if g > row_blocks(m, c, vec):  # no more blocks than the bound needs
+        assert 2 * -(-(-(-m // rows)) // (g - 1)) > bn_mod._MAX_CHAIN or vec == 1
+    n_floats = 2 * g * c
+    assert n_floats <= bn_mod._WORKSPACE_FLOATS or vec == 1
+
+
 @pytest.mark.parametrize("c,itemsize,address,want", [
     (32, 4, 0, 4), (32, 2, 0, 8), (1024, 2, 512, 8),
     (30, 4, 0, 1), (36, 2, 0, 1), (36, 4, 0, 4), (3, 4, 0, 1),

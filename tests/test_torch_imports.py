@@ -24,7 +24,10 @@ ROOT_SCRIPTS = ("valid_ensemble_torch.py", "train_meta_torch.py", "valid_torch.p
                 "scripts/cls_curve_torch.py", "scripts/tuning_delta_torch.py",
                 "scripts/seed_stats_torch.py", "scripts/shot_sweep_torch.py",
                 "scripts/learning_check_torch.py", "scripts/support_snr_torch.py",
-                "scripts/eval_widerface_torch.py", "scripts/multiscale_epoch_torch.py")
+                "scripts/eval_widerface_torch.py", "scripts/multiscale_epoch_torch.py",
+                "bench_torch.py", "scripts/roofline_b384_torch.py",
+                "scripts/bench_meta_pipeline_torch.py", "scripts/bench_int8_meta_torch.py",
+                "scripts/bench_input_pipeline_torch.py")
 TEST_HELPERS = ("synth", "torch_port_util", "torch_image_writers", "torch_ref",
                 "torch_parallel_util", "tests")
 
@@ -284,3 +287,23 @@ def test_analysis_tools_default_to_cuda_and_raise_without_one(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["tiny"]
     assert not os.path.exists(os.path.join(root, "shot1"))
     assert {k: getattr(workflow, k) for k in workflow.DEFAULTS} == defaults
+
+
+def test_bench_scripts_default_to_cuda_and_raise_without_one(tmp_path):
+    """The five bench scripts take --device, default cuda, and refuse
+    before they measure or write anything when there is no card."""
+    import runpy
+
+    import torch
+
+    scripts = ("bench_torch.py", "scripts/roofline_b384_torch.py",
+               "scripts/bench_meta_pipeline_torch.py", "scripts/bench_int8_meta_torch.py",
+               "scripts/bench_input_pipeline_torch.py")
+    mains = {n: runpy.run_path(os.path.join(REPO, n), run_name="x")["main"] for n in scripts}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot be shown")
+    for name, main in mains.items():
+        argv = ["--root", str(tmp_path)] if "input_pipeline" in name else []
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert os.listdir(tmp_path) == []
