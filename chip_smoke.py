@@ -2035,8 +2035,7 @@ def make_plain_episode(seed: int, batch_size: int, dtype_name: str, groups: int 
 class PlainTrainSetup:
     """The plain training step for cfg/yolo-voc.cfg: the spec, the schedule
     train_plain_cli derives (`plain_schedule_from_cfg`) and the parameters
-    from `plain_params` (the smoke and scripts/torch_train_profile.py share
-    it)."""
+    from `plain_params`."""
 
     def __init__(self, seed: int):
         blocks = parse_cfg(PLAIN_CFG)

@@ -33,7 +33,9 @@ from ..eval.detector import resolve_device
 from ..models import meta as meta_mod
 from ..models.darknet import apply_network
 from ..models.spec import NetSpec
+from ..ops.bn_sums import bn_sums
 from ..ops.region_loss import region_loss, region_loss_v2
+from ..utils.profiling import span, step_span
 from .optim import sgd_update, tree_leaves_with_path, tree_map, tree_map_with_path
 
 
@@ -111,47 +113,64 @@ class _GroupTrainer:
         """Forward and backward of one step, nothing updated: (summed loss,
         gradient tree of params' shape, per-group bn_updates, summed
         metrics). A leaf the loss does not reach, and the BN running
-        statistics, get zero gradients."""
-        tensors = [self._to_device(batch[k]) for k in self._KEYS]
+        statistics, get zero gradients. Spans: `train.to_device` (with the
+        batch's `bytes`), `train.forward` a group (with its `group`),
+        `train.backward`."""
+        with span("train.to_device") as sp:
+            tensors = [self._to_device(batch[k]) for k in self._KEYS]
+            sp.add("bytes", sum(t.nbytes for t in tensors))
         paths, leaves = zip(*(
             (p, t) for p, t in tree_leaves_with_path(params) if t.requires_grad
         ))
         losses, bns, metrics = [], [], []
         for r in range(tensors[0].shape[0]):
-            loss, bn, m = self._episode_loss(params, *(t[r] for t in tensors), seen)
+            with span("train.forward") as sp:
+                sp.add("group", r)
+                loss, bn, m = self._episode_loss(params, *(t[r] for t in tensors), seen)
             losses.append(loss)
             bns.append(bn)
             metrics.append({k: v.detach() for k, v in m.items()})
         total = losses[0] if len(losses) == 1 else torch.stack(losses).sum()
-        got = dict(zip(paths, torch.autograd.grad(total, leaves, allow_unused=True)))
-        grads = tree_map_with_path(
-            lambda path, t: got[path] if got.get(path) is not None else torch.zeros_like(t),
-            params,
-        )
+        with span("train.backward"):
+            got = dict(zip(paths, torch.autograd.grad(total, leaves, allow_unused=True)))
+            grads = tree_map_with_path(
+                lambda path, t: got[path] if got.get(path) is not None else torch.zeros_like(t),
+                params,
+            )
         return total.detach(), grads, bns, _sum_metrics(metrics)
 
     def step(self, params, mom, batch: dict, seen: int, lr: float):
         """One train step; returns (params, mom, metrics) with the metrics
         as 0-d tensors left on the device (summed over the groups, and over
         the ranks with a mesh). With a mesh, `batch` holds this rank's
-        groups only."""
-        _, grads, bns, metrics = self.loss_and_grads(params, batch, seen)
-        if self.mesh is None:
-            bn = _mean_over_groups(bns)
-        else:
-            # this rank's groups summed, then everything summed over the
-            # ranks in one flat buffer a dtype (float32 and int64: two
-            # collectives a step)
-            n_groups = len(bns) * self.mesh.size
-            bn = _sum_over_groups(bns)
-            self.mesh.all_reduce_sum((grads, bn, metrics))
-            bn = tree_map(lambda x: x / n_groups, bn)
-        sgd_update(
-            params, grads, mom, lr,
-            momentum=self.momentum, weight_decay=self.weight_decay,
-            decay_bn_and_bias=self._DECAY_BN_AND_BIAS, clip_norm=self.clip_norm,
-        )
-        self._apply_bn(params, bn)
+        groups only. Spans: `train.step`, which starts a step identifier
+        and counts the step's `bn_sums` kernel launches, around those of
+        `loss_and_grads`, `train.allreduce` (with a mesh) and
+        `train.update` (the BN merge, `sgd_update`, `_apply_bn`)."""
+        with step_span("train.step") as sp:
+            fwd, bwd = bn_sums.launches, bn_sums.backward_launches
+            _, grads, bns, metrics = self.loss_and_grads(params, batch, seen)
+            if self.mesh is not None:
+                # this rank's groups summed, then everything summed over the
+                # ranks in one flat buffer a dtype (float32 and int64: two
+                # collectives a step)
+                n_groups = len(bns) * self.mesh.size
+                bn = _sum_over_groups(bns)
+                with span("train.allreduce"):
+                    self.mesh.all_reduce_sum((grads, bn, metrics))
+            with span("train.update"):
+                if self.mesh is None:
+                    bn = _mean_over_groups(bns)
+                else:
+                    bn = tree_map(lambda x: x / n_groups, bn)
+                sgd_update(
+                    params, grads, mom, lr,
+                    momentum=self.momentum, weight_decay=self.weight_decay,
+                    decay_bn_and_bias=self._DECAY_BN_AND_BIAS, clip_norm=self.clip_norm,
+                )
+                self._apply_bn(params, bn)
+            sp.add("bn_sums_forward", bn_sums.launches - fwd)
+            sp.add("bn_sums_backward", bn_sums.backward_launches - bwd)
         return params, mom, metrics
 
 

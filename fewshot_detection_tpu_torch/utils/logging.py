@@ -7,6 +7,8 @@ import time
 
 import torch
 
+from .profiling import span
+
 _KEYS = ("nGT", "nCorrect", "nProposals", "loss_x", "loss_y", "loss_w", "loss_h",
          "loss_conf", "loss_cls", "loss")
 
@@ -17,8 +19,11 @@ def log(message: str) -> None:
 
 def format_loss_line(seen: int, metrics: dict) -> str:
     # fetch the whole metrics dict in ONE device transfer: a float() per
-    # scalar would synchronise with the device ten times a step
-    vals = torch.stack([torch.as_tensor(metrics[k]).to(torch.float64) for k in _KEYS]).tolist()
+    # scalar would synchronise with the device ten times a step (the
+    # `train.sync` span)
+    with span("train.sync"):
+        vals = torch.stack([torch.as_tensor(metrics[k]).to(torch.float64)
+                            for k in _KEYS]).tolist()
     g = dict(zip(_KEYS, vals))
     return (
         f"{seen}: nGT {int(g['nGT'])}, recall {int(g['nCorrect'])}, "

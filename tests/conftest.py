@@ -55,6 +55,12 @@ def pytest_configure(config):
         "slow: multi-minute equivalence soak; skipped unless --runslow "
         "or FSD_SLOW_TESTS=1",
     )
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA device; skipped without one (on the card, where this "
+        "file's JAX is absent: python -m pytest tests/test_torch_spans.py -m card "
+        "--noconftest)",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

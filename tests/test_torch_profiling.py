@@ -19,8 +19,10 @@ from fewshot_detection_tpu_torch.utils import trace_summary as t_ts
 
 
 def _fake_clock(ticks):
+    # the port's phases are spans, timed by time_ns on the same ticks
     it = iter(ticks)
-    return types.SimpleNamespace(perf_counter=lambda: next(it))
+    return types.SimpleNamespace(perf_counter=lambda: next(it),
+                                 time_ns=lambda: round(next(it) * 1e9))
 
 
 @pytest.mark.parametrize("images", [None, 0, 24, 3000])
