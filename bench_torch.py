@@ -3,9 +3,9 @@ step (forward, backward, update), images/sec/chip.
 
 The counterpart of bench.py: the same step (cfg/darknet_dynamic.cfg +
 cfg/reweighting_net.cfg, 416 px, a 15-way support set, batch 384, bfloat16
-inputs, remat: conv outputs and BN batch statistics kept, the epilogues
-recomputed in the backward), the same batch drawn in the same order from
-np.random.RandomState(0), the same seeded parameters, 3 warm-up and 10
+inputs; what bench.py's remat keeps for the backward, the conv outputs and
+BN batch statistics, is all that training BN keeps here), the same batch
+drawn in the same order from np.random.RandomState(0), the same seeded parameters, 3 warm-up and 10
 timed steps, the same fallback chain and the same last line. What differs:
 
   - the batch is converted to bfloat16 on the host and copied to the card
@@ -80,7 +80,7 @@ def make_batch(batch_size: int, device, size=None, n_cls=None):
 
 def make_trainer(device):
     """(trainer, params, momentum) of the bench: the flagship cfgs, the
-    seeded parameters of init_meta_params(spec, 0), remat on."""
+    seeded parameters of init_meta_params(spec, 0)."""
     from fewshot_detection_tpu_torch.config import parse_cfg
     from fewshot_detection_tpu_torch.models.convert import from_jax_params, require_grads
     from fewshot_detection_tpu_torch.models.meta import MetaSpec, init_meta_params
@@ -94,7 +94,7 @@ def make_trainer(device):
     init = init_meta_params(spec, 0)
     params = require_grads({k: from_jax_params(getattr(spec, k), init[k], device)
                             for k in ("darknet", "learnet")})
-    trainer = MetaTrainer(spec, momentum=0.9, weight_decay=0.0005, remat=True, device=device)
+    trainer = MetaTrainer(spec, momentum=0.9, weight_decay=0.0005, device=device)
     return trainer, params, init_momentum(params)
 
 

@@ -9,7 +9,8 @@ the port's CUDA kernels from the sources in this checkout, and runs these
 phases, each printing JSON lines:
 
   device   the card as nvidia-smi names it, its power limit, torch/CUDA versions
-  build    nvcc on csrc/nms.cu and csrc/bn_sums.cu, side by side, seconds taken
+  build    nvcc on csrc/nms.cu, csrc/bn_sums.cu and csrc/bn_act.cu, side by
+           side, seconds taken
   kernels  `nms_rows` (the CUDA kernel) against `nms_rows_reference` (plain
            PyTorch) on the card: keep masks must be bit-equal at the main
            path's shapes, on an adversarial set and on the edges of the
@@ -28,7 +29,17 @@ phases, each printing JSON lines:
            (the reused workspace), the backward bit-equal to the plain
            version. Times are taken twice: per call made from Python one after
            the other (`ms`, the measure of the earlier slices) and on the card
-           alone (`card_ms`)
+           alone (`card_ms`);
+           `bn_act` (training BN's normalise + activation epilogue) forward
+           and backward against their plain versions: leaky, relu and linear,
+           float32 and bfloat16, on both paths (a misaligned base too): the
+           output and dy bit-equal, the pair's gradients within one unit of
+           the type (or SUM_TOL of their terms' magnitudes where a channel's
+           sum cancels), two launches bit-equal, also on a second stream, a
+           non-contiguous input copied and counted, one kernel a call each
+           way; timed beside the plain versions and the byte bound at the
+           bench step's first BN (66,453,504, 32) and the batch-64 cells'
+           13 x 13 layers (10,816, 1024)
   serve    the ensemble-eval path at full width (cfg/darknet_dynamic.cfg +
            cfg/reweighting_net.cfg at 416x416, the tracked trained checkpoint,
            batch 16, top_k 256) on images made from the seed: class codes from
@@ -46,9 +57,9 @@ phases, each printing JSON lines:
            replica group, lr and weight decay as the CLI derives them) on
            episodes painted from the seed, in float32 without TF32 and in
            bfloat16: the first step's loss and gradient norms against the same
-           step through the plain `bn_sums`, a `remat` step, 2 warm-up + 5
-           timed steps with 29 forward and 29 backward `bn_sums` launches
-           each, running statistics that moved, peak memory, images/s and the
+           step through the plain `bn_sums` and `bn_act`, 2 warm-up + 5
+           timed steps with 29 forward and 29 backward launches each of
+           `bn_sums` and of `bn_act`, running statistics that moved, peak memory, images/s and the
            share of a step spent in the `bn_sums` kernels; then `train_s2d`:
            the space-to-depth stem (`s2d=True`) against the plain stem, one
            float32 step each way from the same parameters and episode (the
@@ -202,7 +213,7 @@ phases, each printing JSON lines:
            count every loss line. The cuts are listed as `reduced`
   bench    the five measurement scripts of the JAX tree, ported, on the card:
            bench_torch.py at its defaults (the meta-training step at batch
-           384, 416 px, bfloat16, remat, 3 + 10 steps, 29 + 29 bn_sums
+           384, 416 px, bfloat16, 3 + 10 steps, 29 + 29 bn_sums and bn_act
            launches a step; a fallback to a smaller batch is reported with
            its OOM message), scripts/roofline_b384_torch.py (its FlopCounter
            count equal to the spec's, mfu_pct and hbm_util_pct in (0, 100]),
@@ -289,7 +300,12 @@ from fewshot_detection_tpu_torch.models.weights_io import (
 from fewshot_detection_tpu_torch.native import NativeImagePipe
 from fewshot_detection_tpu_torch.native import build_library as build_native_library
 from fewshot_detection_tpu_torch.native.loader import library_path as native_library_path
-from fewshot_detection_tpu_torch.ops import _build, bn_sums as bn_mod, layers, nms_device
+from fewshot_detection_tpu_torch.ops import _build, bn_act as act_mod, bn_sums as bn_mod, layers, nms_device
+from fewshot_detection_tpu_torch.ops.bn_act import (
+    bn_act,
+    bn_act_backward_reference,
+    bn_act_reference,
+)
 from fewshot_detection_tpu_torch.ops.bn_sums import (
     vector_width,
     bn_sums,
@@ -548,14 +564,15 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both sources are started before either is waited on."""
+    """Every source is started before any is waited on."""
     t0 = time.perf_counter()
-    names = ("nms", "bn_sums")
+    names = ("nms", "bn_sums", "bn_act")
     handles = [_build.start_build(n, verbose=True) for n in names]
     for h in handles:
         _build.finish_build(h)
     nms_device._kernel()
     bn_mod._kernels()
+    act_mod._kernels()
     emit("build", sources=[os.path.relpath(_build.source_path(n), REPO) for n in names],
          libraries=[os.path.relpath(_build.library_path(n), REPO) for n in names],
          flags=list(_build.NVCC_FLAGS), seconds=round(time.perf_counter() - t0, 3))
@@ -869,6 +886,177 @@ def phase_bn_kernels(seed: int) -> dict:
     return {"cases": cases, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# bn_act: the epilogue kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# timed: the bench step's first BN (batch 384, bfloat16 only: the plain
+# backward of a float32 one outgrows the card) and the batch-64 cells' 13 x 13
+# layers; then shapes with C between V and 8 V (a warp's lanes not all used)
+# or C % V != 0 (the scalar path)
+BN_ACT_TIMED = {"bfloat16": [(384 * 416 * 416, 32), (64 * 13 * 13, 1024)],
+                "float32": [(64 * 13 * 13, 1024)]}
+BN_ACT_AWKWARD = [(50000, 48), (777, 24), (1000003, 30), (4099, 3), (7, 1280), (1, 1)]
+
+
+def bn_act_bound_ms(m: int, c: int, itemsize: int, backward: bool) -> float:
+    """Bytes moved once over the memory rate: the forward reads y and writes
+    out, the backward reads dout and y and writes dy; both read the pair and
+    the backward writes its gradients (2 or 4 x C floats). A few operations
+    a value, far below the float32 rate, so bytes bind."""
+    nbytes = m * c * itemsize * (3 if backward else 2) + (4 if backward else 2) * c * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def make_epilogue_inputs(seed: int, m: int, c: int, dtype):
+    """(y, inv, bias, dout) on the card from the seed: y like a conv output,
+    the float32 pair as BN gives it, an upstream gradient."""
+    y = make_activation(seed, m, c, dtype)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    dout = torch.randn((m, c), generator=g, device=DEVICE).to(dtype)
+    inv = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    bias = torch.randn(c, generator=g, device=DEVICE)
+    return y, inv, bias, dout
+
+
+def dtype_ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One unit in the last place of `dtype` at |x|."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=torch.finfo(dtype).tiny)))
+    return torch.finfo(dtype).eps * torch.exp2(e)
+
+
+def epilogue_term_magnitudes(y, inv, bias, dout, activation):
+    """Per channel, the sums of |g * y| and |g| that dinv and dbias add up."""
+    c = y.shape[-1]
+    g = act_mod.grad_at_z(dout, y, inv, bias, activation)
+    gy = (g * y).float().abs().reshape(-1, c).sum(0)
+    return gy, g.float().abs().reshape(-1, c).sum(0)
+
+
+def compare_bn_act(y, inv, bias, dout, activation: str) -> dict:
+    """Kernel and plain version on one input, each way: out and dy
+    bit-equal to the plain version's, dinv and dbias within one unit of y's
+    type (or SUM_TOL of their terms' magnitudes where a channel's sum
+    cancels: two float32 orders), two launches bit-equal. Raises on any
+    failure."""
+    shape, dt = tuple(y.shape), str(y.dtype).split(".")[-1]
+    code = act_mod.activation_code(activation)
+    out = act_mod._launch_forward(y, inv, bias, code)
+    fwd_path = bn_act.last_path
+    check(torch.equal(out, act_mod._launch_forward(y, inv, bias, code)),
+          f"bn_act: two forward launches differ at {shape} {dt}")
+    check(torch.equal(out, bn_act_reference(y, inv, bias, activation)),
+          f"bn_act forward differs from the plain version at {shape} {dt} {activation}")
+    del out
+    got = act_mod._launch_backward(dout, y, inv, bias, code)
+    bwd_path = bn_act.last_backward_path
+    again = act_mod._launch_backward(dout, y, inv, bias, code)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"bn_act: two backward launches differ at {shape} {dt}")
+    del again
+    want = bn_act_backward_reference(dout, y, inv, bias, activation)
+    check(torch.equal(got[0], want[0]),
+          f"bn_act backward's dy differs from the plain version at {shape} {dt} {activation}")
+    mags = epilogue_term_magnitudes(y, inv, bias, dout, activation)
+    res = {"shape": list(shape), "dtype": dt, "activation": activation,
+           "paths": [fwd_path, bwd_path], "aligned16": act_mod._address(y, dout) % 16 == 0}
+    for name, k, p, mag in (("dinv", got[1], want[1], mags[0]), ("dbias", got[2], want[2], mags[1])):
+        ulp = torch.maximum(dtype_ulp(k, y.dtype), dtype_ulp(p, y.dtype))
+        err = (k - p).abs()
+        check(bool((err <= torch.maximum(ulp, SUM_TOL * mag)).all()),
+              f"bn_act {name} off by {float(err.max())} at {shape} {dt} {activation}")
+        res[f"{name}_max_err_ulps"] = float((err / ulp).max())
+        res[f"{name}_channels_past_one_ulp"] = int((err > ulp).sum())
+    return res
+
+
+def time_bn_act(y, inv, bias, dout) -> dict:
+    """Kernels and plain versions, forward and backward (leaky): `*_ms` per
+    call made from Python one after the other, `*_card_ms` on the card
+    alone, beside the byte bound. No single PyTorch call computes either
+    way, so there is no library yardstick."""
+    m, c = y.shape
+    runs = {
+        "fwd": lambda: act_mod._launch_forward(y, inv, bias, 0),
+        "fwd_plain": lambda: bn_act_reference(y, inv, bias, "leaky"),
+        "bwd": lambda: act_mod._launch_backward(dout, y, inv, bias, 0),
+        "bwd_plain": lambda: bn_act_backward_reference(dout, y, inv, bias, "leaky"),
+    }
+    out = {"fwd_bound_ms": bn_act_bound_ms(m, c, y.element_size(), False),
+           "bwd_bound_ms": bn_act_bound_ms(m, c, y.element_size(), True)}
+    for name, fn in runs.items():
+        repeats = 5 if name.endswith("plain") else 20
+        out[f"{name}_ms"] = cuda_ms(fn, repeats)
+        out[f"{name}_card_ms"] = card_ms(fn, repeats)
+    for way in ("fwd", "bwd"):
+        out[f"{way}_share_of_bound"] = out[f"{way}_bound_ms"] / out[f"{way}_card_ms"]
+    return out
+
+
+def check_bn_act_streams(y, inv, bias, dout) -> None:
+    """The backward's table of partials and its tickets are reused from call
+    to call: launches back to back on one stream, then on a second stream
+    while the first is still busy, must give the bits of the first."""
+    global SIDE_STREAM
+    if SIDE_STREAM is None:
+        SIDE_STREAM = torch.cuda.Stream()
+    first = act_mod._launch_backward(dout, y, inv, bias, 0)
+    outs = [act_mod._launch_backward(dout, y, inv, bias, 0) for _ in range(4)]
+    SIDE_STREAM.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(SIDE_STREAM):
+        side = [act_mod._launch_backward(dout, y, inv, bias, 0) for _ in range(4)]
+    outs += [act_mod._launch_backward(dout, y, inv, bias, 0) for _ in range(4)]
+    torch.cuda.synchronize()
+    for tag, group in (("back to back", outs), ("on a second stream", side)):
+        check(all(all(torch.equal(a, b) for a, b in zip(got, first)) for got in group),
+              f"bn_act: backward launches {tag} differ at {tuple(y.shape)} {y.dtype}")
+
+
+def phase_bn_act_kernels(seed: int) -> dict:
+    """Returns the compared cases and the times at the timed shapes."""
+    cases, times, calls = [], {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (m, c) in enumerate(BN_ACT_TIMED[name] + BN_ACT_AWKWARD):
+            y, inv, bias, dout = make_epilogue_inputs(seed + 200 + i, m, c, dtype)
+            timed = (m, c) in BN_ACT_TIMED[name]
+            for activation in (("leaky",) if m * c > 1 << 28 else ("leaky", "relu", "linear")):
+                cases.append(compare_bn_act(y, inv, bias, dout, activation))
+            if timed:
+                times.setdefault(name, {})[f"{m}x{c}"] = time_bn_act(y, inv, bias, dout)
+            if (m, c) in ((64 * 13 * 13, 1024), (4099, 3)):  # one kernel a call, each way, either path
+                for way, fn in (("fwd", lambda: act_mod._launch_forward(y, inv, bias, 0)),
+                                ("bwd", lambda: act_mod._launch_backward(dout, y, inv, bias, 0))):
+                    names, traces = kernels_of_one_call(fn)
+                    check(len(names) == 1 and f"bn_act_elementwise_{way}" in names[0],
+                          f"one {way} at {(m, c)} {name} put {names} on the card ({traces} traces)")
+                    calls[f"{way}_{m}x{c}_{name}"] = names
+            if (m, c) in ((64 * 13 * 13, 1024), (1000003, 30)):
+                check_bn_act_streams(y, inv, bias, dout)
+            del y, dout
+            torch.cuda.empty_cache()
+        # C % V == 0 but the base one element past a 16-byte boundary: the scalar path
+        y, inv, bias, dout = make_epilogue_inputs(seed + 299, 20000 * 64 + 1, 1, dtype)
+        inv, bias = inv.expand(64).contiguous(), bias.expand(64).contiguous()
+        res = compare_bn_act(y.reshape(-1)[1:].view(20000, 64), inv, bias,
+                             dout.reshape(-1)[1:].view(20000, 64), "leaky")
+        check(res["paths"] == ["scalar", "scalar"] and not res["aligned16"],
+              f"the misaligned case ran {res}")
+        cases.append(res)
+        # a view that is not row-major, through the function: copied and counted
+        y, inv, bias, _ = make_epilogue_inputs(seed + 298, 3001, 96, dtype)
+        copies = bn_act.layout_copies
+        out = bn_act(y[:, 16:80], inv[16:80], bias[16:80], "leaky")
+        check(bn_act.layout_copies == copies + 1
+              and torch.equal(out, bn_act_reference(y[:, 16:80], inv[16:80], bias[16:80], "leaky")),
+              "a non-contiguous view through bn_act")
+    for want in ("vector", "scalar"):
+        check(any(c["paths"] == [want, want] for c in cases), f"no case reached the {want} path")
+    emit("kernels", name="bn_act", tolerance_over_sum_abs=SUM_TOL, cases=cases, times=times,
+         kernels_of_a_call=calls)
+    return {"cases": cases, "times": times}
+
+
 def sweep(run, n_images: int, classes, outdir: str, tag: str, top_k: int) -> dict:
     """One sweep of the main path: `run(prefix, stats)` is valid._meta_sweep
     or valid._plain_sweep over n_images. The kernel's launch count is set to
@@ -1127,20 +1315,28 @@ class KernelClock:
 
 class PathInputs:
     """What the kernels' wrappers are given while a path runs, recorded by
-    standing in for the bn_sums forward launch and for the NMS call of
-    eval/device_pipeline.py, which add no launch of their own: every
-    distinct bn_sums (M, C, dtype), and a copy of the first (boxes, dsel)
-    of each distinct nms_rows (R, K)."""
+    standing in for the bn_sums and bn_act forward launches and for the NMS
+    call of eval/device_pipeline.py, which add no launch of their own: every
+    distinct bn_sums (M, C, dtype), every distinct bn_act (M, C, dtype,
+    activation code), and a copy of the first (boxes, dsel) of each distinct
+    nms_rows (R, K)."""
 
     def __init__(self):
         self.bn = set()
+        self.act = set()
         self.nms = {}
         self._fwd, self._nms = bn_mod._launch_forward, device_pipeline.nms_rows
+        self._act = act_mod._launch_forward
 
     def _record_fwd(self, x):
         c = x.shape[-1]
         self.bn.add((x.numel() // c, c, x.dtype))
         return self._fwd(x)
+
+    def _record_act(self, y, inv, bias, code):
+        c = y.shape[-1]
+        self.act.add((y.numel() // c, c, y.dtype, code))
+        return self._act(y, inv, bias, code)
 
     def _record_nms(self, boxes, dsel, thresh):
         if tuple(dsel.shape) not in self.nms:
@@ -1149,74 +1345,103 @@ class PathInputs:
 
     def __enter__(self):
         bn_mod._launch_forward = self._record_fwd
+        act_mod._launch_forward = self._record_act
         device_pipeline.nms_rows = self._record_nms
         return self
 
     def __exit__(self, *exc):
         bn_mod._launch_forward, device_pipeline.nms_rows = self._fwd, self._nms
+        act_mod._launch_forward = self._act
+
+
+# the kernel counts a training path reports: bn_sums' launches each way and
+# layout copies, and bn_act's launches each way
+BN_KEYS = ("fwd", "bwd", "layout_copies", "act_fwd", "act_bwd")
+
+
+def zero_bn_counts() -> None:
+    """Set the launch and layout-copy counters of `bn_sums` and `bn_act` to 0."""
+    for fn in (bn_sums, bn_act):
+        fn.launches = fn.backward_launches = fn.layout_copies = 0
+
+
+def bn_counts() -> dict:
+    """The counters `zero_bn_counts` set to 0, under BN_KEYS."""
+    return dict(zip(BN_KEYS, (bn_sums.launches, bn_sums.backward_launches,
+                              bn_sums.layout_copies, bn_act.launches, bn_act.backward_launches)))
+
+
+def add_counts(total: dict, got: dict) -> dict:
+    """`total` with each of BN_KEYS that `got` holds added to it."""
+    for k in BN_KEYS:
+        if k in got:
+            total[k] = total.get(k, 0) + got[k]
+    return total
+
+
+def check_bn_counts(what: str, counts: dict, n: int) -> None:
+    """`n` launches of each: bn_sums forward and backward, bn_act forward and
+    backward (every training BN launches each once a step each way)."""
+    got = [counts[k] for k in ("fwd", "bwd", "act_fwd", "act_bwd")]
+    check(got == [n] * 4, f"{what} launched {got} bn_sums forward, backward and bn_act "
+                          f"forward, backward kernels, not {n} each")
 
 
 def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
                   batch_size: int, bn_layers: int, picks: dict, dtype: torch.dtype) -> dict:
-    """One training path (phase `tag`) in one dtype: `make_trainer(**kw)` builds its
-    trainer (kw: remat), `load_params()` a fresh parameter tree on the card,
+    """One training path (phase `tag`) in one dtype: `make_trainer()` builds its
+    trainer, `load_params()` a fresh parameter tree on the card,
     `episodes` are its batches (2 warm-up + timed ones), `lr(i)` the rate of
     step i, `bn_layers` its BatchNorms, `picks` the gradient leaves to
     report. The first step's loss and gradient norms through the kernels,
-    the plain versions (sums taken in float64) and remat; then the main
-    path."""
+    the plain versions (sums taken in float64); then the main path."""
     name = str(dtype).split(".")[-1]
     params = load_params()
     trainer = make_trainer()
 
-    # -- the first step's loss and gradients: kernels, plain versions, remat
+    # -- the first step's loss and gradients: kernels, plain versions
     seen = seen0 + batch_size
-    bn_sums.launches = bn_sums.backward_launches = 0
+    zero_bn_counts()
     loss_k, grads_k, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
     torch.cuda.synchronize()
     check((bn_sums.launches, bn_sums.backward_launches) == (bn_layers, bn_layers),
           f"one step launched {bn_sums.launches} + {bn_sums.backward_launches} bn_sums kernels")
+    check((bn_act.launches, bn_act.backward_launches) == (bn_layers, bn_layers),
+          f"one step launched {bn_act.launches} + {bn_act.backward_launches} bn_act kernels")
     norms_k = grad_norms(grads_k, picks)
     del grads_k
     norms, loss = {"kernel": norms_k}, {"kernel": float(loss_k)}
-    # the same step through the plain version, whose sums are taken in
-    # float64 (differentiated by autograd): the yardstick for how far two
-    # right float32 answers lie apart at this depth
-    layers.bn_sums = bn_sums_reference
-    loss_v, grads_v, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
-    layers.bn_sums = bn_sums
+    # the same step through the plain versions, whose sums are taken in
+    # float64 and whose epilogue is the plain composition (differentiated by
+    # autograd): the yardstick for how far two right float32 answers lie
+    # apart at this depth
+    layers.bn_sums, layers.bn_act = bn_sums_reference, bn_act_reference
+    try:
+        loss_v, grads_v, _, _ = trainer.loss_and_grads(params, episodes[0], seen)
+    finally:
+        layers.bn_sums, layers.bn_act = bn_sums, bn_act
     norms["plain"], loss["plain"] = grad_norms(grads_v, picks), float(loss_v)
     del grads_v
-    check(bn_sums.launches == bn_layers, "a plain step launched the kernel")
-    bn_sums.launches = bn_sums.backward_launches = 0
-    loss_v, grads_v, _, _ = make_trainer(remat=True).loss_and_grads(params, episodes[0], seen)
-    norms["remat"], loss["remat"] = grad_norms(grads_v, picks), float(loss_v)
-    del grads_v
-    remat_launches = (bn_sums.launches, bn_sums.backward_launches)
-    check(remat_launches == (bn_layers, bn_layers),
-          f"the remat step launched {remat_launches} bn_sums kernels")
+    check(bn_sums.launches == bn_layers and bn_act.launches == bn_layers,
+          "a plain step launched a kernel")
     # Kernel and plain version add in another order, so a layer's statistics
     # differ in the last bit; every BN backward below amplifies that, most in
     # the first layers, whose parameter gradients are sums of millions of
     # cancelling terms. In bfloat16 a last-bit change of a statistic can move a
     # whole channel's scale by one rounding step (2^-8). So: the loss against
-    # the plain version; each gradient norm of kernel and remat against the
-    # plain version's (float64 sums) within the bound.
+    # the plain version; each gradient norm of the kernels against the plain
+    # version's (float64 sums) within the bound.
     tol = ({"loss": 1e-5, "all": 1e-4, "leaf": 1e-2} if dtype == torch.float32
            else {"loss": 2e-2, "all": 1e-1, "leaf": 2e-1})
-    first_step = {"loss": loss, "grad_norms": norms, "rel_tolerance": tol,
-                  "remat_launches": list(remat_launches)}
+    first_step = {"loss": loss, "grad_norms": norms, "rel_tolerance": tol}
     emit(f"{tag}_first_step", dtype=name, **first_step)
     check(np.isfinite(loss["kernel"])
           and abs(loss["kernel"] - loss["plain"]) <= tol["loss"] * abs(loss["plain"]),
           f"first step's loss {loss['kernel']} against {loss['plain']} through the plain version")
-    check(abs(loss["kernel"] - loss["remat"]) <= 1e-6 * abs(loss["kernel"]),
-          f"remat loss {loss['remat']} against {loss['kernel']}")
     for key, exact in norms["plain"].items():
         room = tol["all" if key == "all" else "leaf"] * exact
-        for way in ("kernel", "remat"):
-            check(abs(norms[way][key] - exact) <= room,
-                  f"gradient norm {key}: {way} {norms[way][key]} against {exact} (float64 sums)")
+        check(abs(norms["kernel"][key] - exact) <= room,
+              f"gradient norm {key}: {norms['kernel'][key]} against {exact} (float64 sums)")
 
     # -- the main path: warm-up and timed steps, counts read right after
     before = bn_stats_snapshot(params)
@@ -1224,7 +1449,7 @@ def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
     lines, losses = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    zero_bn_counts()
     seen = seen0
     for i, ep in enumerate(episodes):
         if i == TRAIN_WARMUP_STEPS:
@@ -1236,12 +1461,11 @@ def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
         losses.append(float(lines[-1].rsplit(" ", 1)[-1]))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = (bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies)
+    counts, act_copies = bn_counts(), bn_act.layout_copies
     peak = torch.cuda.max_memory_allocated()
     steps = len(episodes)
     timed = steps - TRAIN_WARMUP_STEPS
-    check(launches[:2] == (bn_layers * steps, bn_layers * steps),
-          f"{steps} steps launched {launches[0]} forward and {launches[1]} backward bn_sums kernels")
+    check_bn_counts(f"{steps} {tag} {name} steps", counts, bn_layers * steps)
     check(all(np.isfinite(losses)), f"losses {losses}")
     after = bn_stats_snapshot(params)
     check(len(before) == 2 * bn_layers, f"{len(before)} running-statistics leaves")
@@ -1266,9 +1490,10 @@ def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
             "momentum": trainer.momentum, "first_step": first_step,
             "steps": steps, "timed_steps": timed, "losses": losses,
             "first_line": lines[0], "last_line": lines[-1],
-            "bn_fwd_launches": launches[0], "bn_bwd_launches": launches[1],
-            "launches_per_step": [launches[0] // steps, launches[1] // steps],
-            "layout_copies": launches[2], "bn_stats_moved": len(before),
+            "bn_counts": counts,
+            "launches_per_step": [counts["fwd"] // steps, counts["bwd"] // steps],
+            "bn_act_launches_per_step": [counts["act_fwd"] // steps, counts["act_bwd"] // steps],
+            "bn_act_layout_copies": act_copies, "bn_stats_moved": len(before),
             "peak_memory_bytes": peak, "seconds_timed": seconds,
             "images_per_s": timed * batch_size / seconds,
             "step_ms_events": step_ms, "bn_kernels_ms_in_step": kernels_ms,
@@ -1278,13 +1503,13 @@ def train_variant(tag: str, make_trainer, load_params, episodes, lr, seen0: int,
 def timed_steps(trainer, load_params, episodes, lr, seen0: int, batch_size: int,
                 bn_layers: int) -> dict:
     """TRAIN_WARMUP_STEPS + timed steps from fresh parameters: images/s of
-    the timed ones, peak memory, and the bn_sums launches, which must be
-    `bn_layers` forward and backward a step."""
+    the timed ones, peak memory, and the bn_sums and bn_act launches, which
+    must be `bn_layers` forward and backward a step."""
     params = load_params()
     mom = init_momentum(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bn_sums.launches = bn_sums.backward_launches = 0
+    zero_bn_counts()
     seen = seen0
     losses = []
     for i, ep in enumerate(episodes):
@@ -1299,14 +1524,13 @@ def timed_steps(trainer, load_params, episodes, lr, seen0: int, batch_size: int,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     steps = len(episodes)
-    launches = (bn_sums.launches, bn_sums.backward_launches)
-    check(launches == (bn_layers * steps, bn_layers * steps),
-          f"{steps} steps launched {launches} bn_sums kernels")
+    counts = bn_counts()
+    check_bn_counts(f"{steps} timed steps", counts, bn_layers * steps)
     check(all(np.isfinite(losses)), f"losses {losses}")
     return {"images_per_s": (steps - TRAIN_WARMUP_STEPS) * batch_size / seconds,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            "launches_per_step": [launches[0] // steps, launches[1] // steps],
-            "fwd": launches[0], "bwd": launches[1], "losses": losses, "first_step": first}
+            "launches_per_step": [counts["fwd"] // steps, counts["bwd"] // steps],
+            **counts, "losses": losses, "first_step": first}
 
 
 # The s2d stem against the plain one in float32 (TF32 off), one step from
@@ -1329,14 +1553,14 @@ def s2d_variants(tag: str, make_trainer, load_params, make_episodes, lr, seen0: 
     its plain stem: one float32 step each way compared, then images/s and
     peak memory of both stems in both types. `make_trainer(dtype, **kw)`
     builds the trainer, `make_episodes(dtype_name)` the batches. Returns the
-    bn_sums launches of the s2d runs."""
-    report, total = {}, {"fwd": 0, "bwd": 0}
+    bn_sums and bn_act launches of the s2d runs."""
+    report, total = {}, {}
     ep = make_episodes("float32")[0]
     deltas, losses = {}, {}
     for way in ("plain_stem", "s2d", "plain_stem_plain_sums"):
         params = load_params()
         start = {p: t.detach().clone() for p, t in tree_leaves_with_path(params)}
-        bn_sums.launches = bn_sums.backward_launches = 0
+        zero_bn_counts()
         if way == "plain_stem_plain_sums":
             layers.bn_sums = bn_sums_reference
         try:
@@ -1349,8 +1573,9 @@ def s2d_variants(tag: str, make_trainer, load_params, make_episodes, lr, seen0: 
         check((bn_sums.launches, bn_sums.backward_launches) == want,
               f"a {way} step launched {bn_sums.launches} + {bn_sums.backward_launches}")
         if way == "s2d":
-            total["fwd"] += bn_sums.launches
-            total["bwd"] += bn_sums.backward_launches
+            counts = bn_counts()
+            check_bn_counts("an s2d step", counts, bn_layers)
+            add_counts(total, counts)
         deltas[way] = {p: (t.detach() - start[p]).double() for p, t in tree_leaves_with_path(params)}
         del params, start
     base = deltas["plain_stem"]
@@ -1387,8 +1612,7 @@ def s2d_variants(tag: str, make_trainer, load_params, make_episodes, lr, seen0: 
                               batch_size, bn_layers)
             report[f"{name}_{'s2d' if s2d else 'plain_stem'}"] = got
             if s2d:
-                total["fwd"] += got["fwd"]
-                total["bwd"] += got["bwd"]
+                add_counts(total, got)
             torch.cuda.empty_cache()
     emit(f"{tag}_s2d", batch=batch_size, size=416, **report)
     return total
@@ -1396,16 +1620,14 @@ def s2d_variants(tag: str, make_trainer, load_params, make_episodes, lr, seen0: 
 
 def run_train_variants(name: str, variant) -> dict:
     """`variant(dtype)` for float32 and bfloat16, each emitted as phase
-    `name`; returns the bn_sums launches of their main paths, summed, and the
-    BN layers' shapes."""
-    total = {"fwd": 0, "bwd": 0, "layout_copies": 0}
+    `name`; returns the bn_sums and bn_act launches of their main paths,
+    summed, and the BN layers' shapes."""
+    total = {}
     for dtype in (torch.float32, torch.bfloat16):
         report = variant(dtype)
         emit(name, **report)
         total["bn_layer_shapes"] = report["bn_layer_shapes"]
-        total["fwd"] += report["bn_fwd_launches"]
-        total["bwd"] += report["bn_bwd_launches"]
-        total["layout_copies"] += report["layout_copies"]
+        add_counts(total, report["bn_counts"])
         torch.cuda.empty_cache()
     return total
 
@@ -1453,9 +1675,7 @@ def phase_train(seed: int) -> dict:
     total = run_train_variants("train", variant)
     s2d = s2d_variants("train", make_trainer, load_params, make_episodes,
                        lambda i: sched.lr(processed + i), SEEN, sched.batch_size, BN_LAYERS)
-    total["fwd"] += s2d["fwd"]
-    total["bwd"] += s2d["bwd"]
-    return total
+    return add_counts(total, s2d)
 
 
 # ---------------------------------------------------------------------------
@@ -2078,9 +2298,7 @@ def phase_plain_train(seed: int) -> dict:
     total = run_train_variants("plain_train", variant)
     s2d = s2d_variants("plain_train", setup.make_trainer, setup.load_params, make_episodes,
                        sched.lr, 0, sched.batch_size, PLAIN_BN_LAYERS)
-    total["fwd"] += s2d["fwd"]
-    total["bwd"] += s2d["bwd"]
-    return total
+    return add_counts(total, s2d)
 
 
 def phase_bn_step(path: str, shapes: list, n_layers: int, seed: int) -> None:
@@ -2143,13 +2361,13 @@ def phase_debug(seed: int) -> dict:
         os.environ["FSD_NATIVE"] = "1"
         out = io.StringIO()
         try:
-            bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+            zero_bn_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 loss, grad_max = debug_torch.main(PLAIN_CFG, weights, path)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = (bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies)
+            counts = bn_counts()
         finally:
             if old is None:
                 os.environ.pop("FSD_NATIVE")
@@ -2157,16 +2375,15 @@ def phase_debug(seed: int) -> dict:
                 os.environ["FSD_NATIVE"] = old
     lines = out.getvalue().splitlines()
     n_convs = sum(1 for layer in spec.layers if layer.kind == "conv")
-    check(launches[:2] == (PLAIN_BN_LAYERS, PLAIN_BN_LAYERS),
-          f"debug_torch.py launched {launches[:2]} bn_sums kernels")
+    check_bn_counts("debug_torch.py", counts, PLAIN_BN_LAYERS)
     check(np.isfinite(loss) and len(grad_max) == n_convs and np.isfinite(grad_max).all()
           and min(grad_max) > 0, f"loss {loss}, gradient maxima {grad_max}")
     check(any(f"nGT={len(objs)}" in line for line in lines), f"nGT of {len(objs)} objects")
     emit("debug", cfg=os.path.relpath(PLAIN_CFG, REPO), image=[w, h], objects=len(objs),
          seconds=seconds, loss=loss, grad_max=grad_max, large=sum(g > 10 for g in grad_max),
          printed_lines=len(lines), loss_line=next(l for l in lines if l.startswith("loss")),
-         bn_launches=list(launches[:2]))
-    return {"fwd": launches[0], "bwd": launches[1], "layout_copies": launches[2]}
+         bn_launches=[counts["fwd"], counts["bwd"]])
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2467,7 +2684,7 @@ def phase_ckpt(seed: int, smi: str) -> dict:
     seen, processed = SEEN, SEEN // sched.batch_size
     report = {"card": smi, "dtype": "bfloat16", "batch": sched.batch_size, "n_cls": TRAIN_N_CLS}
     torch.cuda.synchronize()
-    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    zero_bn_counts()
     steps = 0
 
     def step(i):
@@ -2540,10 +2757,8 @@ def phase_ckpt(seed: int, smi: str) -> dict:
                       trace_top=sorted(summary["categories"].items(), key=lambda kv: -kv[1])[:6])
         check((fwd, bwd) == (3 * BN_LAYERS, 3 * BN_LAYERS),
               f"the trace of 3 steps names {fwd} + {bwd} bn_sums kernels")
-    launches = {"fwd": bn_sums.launches, "bwd": bn_sums.backward_launches,
-                "layout_copies": bn_sums.layout_copies}
-    check((launches["fwd"], launches["bwd"]) == (steps * BN_LAYERS, steps * BN_LAYERS),
-          f"{steps} steps launched {launches} bn_sums kernels")
+    launches = bn_counts()
+    check_bn_counts(f"{steps} ckpt steps", launches, steps * BN_LAYERS)
     emit("ckpt", steps=steps, launches=launches, **report)
     return launches
 
@@ -2618,27 +2833,26 @@ def phase_files(seed: int, smi: str) -> dict:
             env = {"FSD_NATIVE": "1", "FSD_NATIVE_BATCH": "1", "FSD_WORKERS": "2",
                    "FSD_ORBAX_DIR": os.path.join(root, "ckpt"), "FSD_ASYNC_CKPT": "1",
                    "FSD_PROFILE_DIR": os.path.join(root, "trace"), "FSD_DTYPE": "bfloat16"}
-            bn_total = {"fwd": 0, "bwd": 0, "layout_copies": 0}
+            bn_total = {}
             runs = []
             for run, epochs in enumerate(FILES_EPOCHS):
                 cfg = datacfg(epochs)
                 torch.cuda.synchronize()
-                bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+                zero_bn_counts()
                 t0 = time.perf_counter()
                 out = run_cli(lambda: train_meta_cli.main(cfg, DARKNET_CFG, LEARNET_CFG, init_w),
                               env)
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
-                fwd, bwd = bn_sums.launches, bn_sums.backward_launches
+                counts = bn_counts()
+                fwd, bwd = counts["fwd"], counts["bwd"]
                 losses = [(int(s), float(v)) for s, v in LOSS_RE.findall(out)]
                 timers = TIMER_RE.findall(out)
                 check(losses and all(np.isfinite(v) for _, v in losses),
                       f"tuning run {run}: loss lines {losses}")
-                check((fwd, bwd) == (BN_LAYERS * len(losses),) * 2,
-                      f"tuning run {run}: {len(losses)} steps launched {fwd} + {bwd} bn_sums kernels")
-                bn_total["fwd"] += fwd
-                bn_total["bwd"] += bwd
-                bn_total["layout_copies"] += bn_sums.layout_copies
+                check_bn_counts(f"tuning run {run}'s {len(losses)} steps", counts,
+                                BN_LAYERS * len(losses))
+                add_counts(bn_total, counts)
                 # the CLI's "repeat nsamples max_batches batch" line
                 nsamples, batch = map(int, re.search(r"^\S+ \S+ 1 (\d+) \d+ (\d+)$", out,
                                                      re.M).groups())
@@ -2724,17 +2938,15 @@ def workflow_stage(name: str, run, root: str, env: dict) -> tuple[dict, dict]:
     the card: `run()` runs it with `env` set. Its seconds and kernel launches
     are read right after it; a training stage's loss lines (its log under
     `root`) must be finite with one bn_sums launch a BN layer a step each
-    way, a sweep must launch the NMS kernel. Returns (the stage's report,
-    the workflow's WORKFLOW summary)."""
+    way (and one of bn_act), a sweep must launch the NMS kernel. Returns
+    (the stage's report, the workflow's WORKFLOW summary)."""
     torch.cuda.synchronize()
-    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    zero_bn_counts()
     nms_rows.launches = 0
     t0 = time.perf_counter()
     out = run_cli(run, env)
     torch.cuda.synchronize()
-    stage = {"seconds": time.perf_counter() - t0, "bn_sums_fwd": bn_sums.launches,
-             "bn_sums_bwd": bn_sums.backward_launches, "layout_copies": bn_sums.layout_copies,
-             "nms_rows": nms_rows.launches}
+    stage = {"seconds": time.perf_counter() - t0, "bn": bn_counts(), "nms_rows": nms_rows.launches}
     summary = json.loads(out.rsplit("WORKFLOW ", 1)[1].splitlines()[0])
     check(name in summary, f"workflow stage {name} did not finish")
     if name in WORKFLOW_LOGS:
@@ -2745,10 +2957,8 @@ def workflow_stage(name: str, run, root: str, env: dict) -> tuple[dict, dict]:
         if name in WORKFLOW_BN_LAYERS:
             check(losses and all(np.isfinite(v) for v in losses),
                   f"workflow {name}: loss lines {losses[:5]}")
-            n = WORKFLOW_BN_LAYERS[name] * len(losses)
-            check((bn_sums.launches, bn_sums.backward_launches) == (n, n),
-                  f"workflow {name}: {len(losses)} steps launched "
-                  f"{bn_sums.launches} + {bn_sums.backward_launches} bn_sums kernels")
+            check_bn_counts(f"workflow {name}'s {len(losses)} steps", stage["bn"],
+                            WORKFLOW_BN_LAYERS[name] * len(losses))
             stage.update(first_loss=losses[0], last_loss=losses[-1],
                          step_timer=TIMER_RE.findall(text))
         else:
@@ -2756,14 +2966,13 @@ def workflow_stage(name: str, run, root: str, env: dict) -> tuple[dict, dict]:
     return stage, summary
 
 
-def stage_launches(stages: dict, fwd: int = 0, bwd: int = 0) -> dict:
-    """The kernel launches of a workflow's stages (and `fwd` + `bwd` of
-    other work of the phase), summed."""
-    def total(key):
-        return sum(st[key] for st in stages.values())
-    return {"bn": {"fwd": fwd + total("bn_sums_fwd"), "bwd": bwd + total("bn_sums_bwd"),
-                   "layout_copies": total("layout_copies")},
-            "nms": {"launches": total("nms_rows")}}
+def stage_launches(stages: dict, other: dict | None = None) -> dict:
+    """The kernel launches of a workflow's stages (and the bn counts `other`
+    of other work of the phase), summed."""
+    bn = add_counts({}, other or {})
+    for st in stages.values():
+        add_counts(bn, st["bn"])
+    return {"bn": bn, "nms": {"launches": sum(st["nms_rows"] for st in stages.values())}}
 
 
 def phase_workflow(smi: str, workdir: str) -> dict:
@@ -2894,7 +3103,7 @@ def coco_step_runs(seed: int) -> dict:
     dblocks, lblocks = parse_cfg(DARKNET_CFG), parse_cfg(LEARNET_CFG)
     spec = MetaSpec(build_spec(dblocks), build_spec(lblocks))
     init = init_meta_params(spec, seed)
-    total = {"fwd": 0, "bwd": 0}
+    total = {}
 
     def load_params():
         return require_grads({k: from_jax_params(getattr(spec, k), init[k], DEVICE)
@@ -2919,8 +3128,7 @@ def coco_step_runs(seed: int) -> dict:
             check(abs(cls_per_gt / np.log(n_cls) - 1) <= COCO_CLS_TOL,
                   f"coco {step} {name}: first class loss {cls_per_gt} per object, "
                   f"against ln {n_cls}")
-            total["fwd"] += got["fwd"]
-            total["bwd"] += got["bwd"]
+            add_counts(total, got)
             del episodes, trainer
             torch.cuda.empty_cache()
     return total
@@ -2970,7 +3178,7 @@ def phase_coco(seed: int, smi: str) -> dict:
     report["workflow_seconds"] = sum(st["seconds"] for st in report["stages"].values())
     report["seconds"] = time.perf_counter() - t_phase
     emit("coco", **report)
-    return stage_launches(report["stages"], steps["fwd"], steps["bwd"])
+    return stage_launches(report["stages"], steps)
 
 
 def phase_coco_kernels(rec: PathInputs, seed: int) -> dict:
@@ -3070,11 +3278,11 @@ def dp_step(setup, mesh=None, timed: int = 0) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     collectives = mesh.collectives if mesh else 0
-    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    zero_bn_counts()
     params, mom, metrics = trainer.step(params, mom, batch, seen=seen, lr=lr)
     loss = float(metrics["loss"])
     torch.cuda.synchronize()
-    launches = [bn_sums.launches, bn_sums.backward_launches, bn_sums.layout_copies]
+    launches = bn_counts()
     collectives = (mesh.collectives if mesh else 0) - collectives
     norms = {p: float((t.detach() - start[p]).double().norm())
              for p, t in tree_leaves_with_path(params)}
@@ -3342,12 +3550,11 @@ def phase_dp(seed: int, smi: str, recorded: PathInputs) -> dict:
     check(g0["backend"] == DP_WORLDS["gloo2"][1] and g0["size"] == 2,
           f"world of two: {g0['backend']}")
     check(n1["meta"]["groups"] == DP_GROUPS, "the rank of a world of one got every group")
-    check(n1["meta"]["launches"][:2] == [DP_GROUPS * BN_LAYERS] * 2,
-          f"the world of one's step launched {n1['meta']['launches']} bn_sums kernels")
+    check_bn_counts("the world of one's step", n1["meta"]["launches"], DP_GROUPS * BN_LAYERS)
     report["nccl_world_of_one"] = {
         "against_one_process": dp_hold("nccl world of one", n1["meta"], meta_one),
         "collectives_per_step": n1["meta"]["collectives"],
-        "bn_launches_per_step": n1["meta"]["launches"][:2],
+        "bn_launches_per_step": n1["meta"]["launches"],
         "images_per_s_mesh": n1["meta"]["images_per_s"],
         "images_per_s_no_mesh": meta_one["images_per_s"],
         "peak_memory_bytes": n1["meta"]["peak_memory_bytes"],
@@ -3358,15 +3565,14 @@ def phase_dp(seed: int, smi: str, recorded: PathInputs) -> dict:
                                                                PLAIN_BN_LAYERS)):
         for rep in (g0, g1):
             check(rep[key]["groups"] == 1, f"a rank of two got {rep[key]['groups']} groups")
-            check(rep[key]["launches"][:2] == [layers_, layers_],
-                  f"rank {rep['rank']}'s {key} step launched {rep[key]['launches']}")
+            check_bn_counts(f"rank {rep['rank']}'s {key} step", rep[key]["launches"], layers_)
         check(g0[key]["digest"] == g1[key]["digest"],
               f"the two ranks' {key} trees differ after the step")
         report[f"gloo_world_of_two_{key}"] = {
             "ranks_bit_equal": True,
             "against_one_process": dp_hold(f"gloo {key}", g0[key], one),
             "collectives_per_step": g0[key]["collectives"],
-            "bn_launches_per_rank": g0[key]["launches"][:2],
+            "bn_launches_per_rank": g0[key]["launches"],
             "peak_memory_bytes_by_rank": [g0[key]["peak_memory_bytes"],
                                           g1[key]["peak_memory_bytes"]],
             "peak_memory_bytes_one_process": one["peak_memory_bytes"]}
@@ -3384,10 +3590,12 @@ def phase_dp(seed: int, smi: str, recorded: PathInputs) -> dict:
     files = report["sharded_sweep"]
     check(files["same_lines"] and files["lines"] > 0 and files["worst_over_tolerance"] <= 1,
           f"the sharded sweep's files are not line-equal to one process's: {files}")
-    fwd = sum(r[k]["launches"][0] for r in (n1, g0, g1) for k in ("meta", "plain") if k in r)
-    bwd = sum(r[k]["launches"][1] for r in (n1, g0, g1) for k in ("meta", "plain") if k in r)
-    copies = sum(r[k]["launches"][2] for r in (n1, g0, g1) for k in ("meta", "plain") if k in r)
-    return {"bn": {"fwd": fwd, "bwd": bwd, "layout_copies": copies},
+    bn = {}
+    for r in (n1, g0, g1):
+        for k in ("meta", "plain"):
+            if k in r:
+                add_counts(bn, r[k]["launches"])
+    return {"bn": bn,
             "nms": {"launches": sum(launches)}}
 
 
@@ -3446,15 +3654,14 @@ def counted(fn, env: dict):
     """fn() under `env` with every kernel count set to 0 just before and
     read just after: (its result, what it printed, the counts, seconds)."""
     torch.cuda.synchronize()
-    bn_sums.launches = bn_sums.backward_launches = bn_sums.layout_copies = 0
+    zero_bn_counts()
     nms_rows.launches = nms_rows.long_launches = 0
     box = {}
     t0 = time.perf_counter()
     out = run_cli(lambda: box.setdefault("result", fn()), env)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"bn_sums_fwd": bn_sums.launches, "bn_sums_bwd": bn_sums.backward_launches,
-              "layout_copies": bn_sums.layout_copies, "nms_rows": nms_rows.launches,
+    counts = {"bn": bn_counts(), "nms_rows": nms_rows.launches,
               "nms_rows_long": nms_rows.long_launches}
     return box.get("result"), out, counts, seconds
 
@@ -3468,8 +3675,7 @@ def analysis_multiscale(root: str) -> dict:
         ["--batch", "32", "--batches", str(MS_EPOCH_BATCHES), "--root", root,
          "--device", DEVICE]), ANALYSIS_ENV)
     steps = 4 * len(result["buckets"]) + MS_EPOCH_BATCHES
-    check(counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * steps,
-          f"multiscale: {steps} steps launched {counts}")
+    check_bn_counts(f"multiscale's {steps} steps", counts["bn"], BN_LAYERS * steps)
     check(list(result["buckets"]) == tool["SIZES"], f"buckets {list(result['buckets'])}")
     check(all(np.isfinite(b["img_per_s"]) and b["peak_hbm_gib"] for b in
               result["buckets"].values()), "multiscale bucket numbers")
@@ -3493,7 +3699,8 @@ def analysis_support_snr(root: str, workdir: str) -> dict:
     summary = tool["summarize"](codes)
     check(summary["n_cls"] == TRAIN_N_CLS and summary["n_draws"] == SNR_DRAWS,
           f"support_snr summary {summary}")
-    check(counts["bn_sums_fwd"] > 0, "support_snr launched no bn_sums kernel")
+    check(counts["bn"]["fwd"] == counts["bn"]["act_fwd"] > 0,
+          f"support_snr launched {counts['bn']}")
     t0 = time.perf_counter()
     cpu, _, _, _ = counted(lambda: tool["draw_codes"](*args, n_draws=1, device="cpu"),
                            ANALYSIS_ENV)
@@ -3528,8 +3735,8 @@ def analysis_learning_check(root: str) -> tuple[dict, str]:
     losses = [float(v) for _, v in LOSS_RE.findall(out)]
     n_steps = len(losses)
     check(all(np.isfinite(losses)), f"learning_check: losses {losses}")
-    check(n_steps > 0 and counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * n_steps
-          and counts["nms_rows"] > 0, f"learning_check: {n_steps} steps launched {counts}")
+    check(n_steps > 0 and counts["nms_rows"] > 0, f"learning_check: {n_steps} steps, {counts}")
+    check_bn_counts(f"learning_check's {n_steps} steps", counts["bn"], BN_LAYERS * n_steps)
     return {"line": line, "steps": n_steps, "first_loss": losses[0], "last_loss": losses[-1],
             "part_seconds": result["seconds"],
             "seconds": seconds, **counts}, log
@@ -3555,7 +3762,7 @@ def analysis_tiny_root(root: str) -> dict:
     check(list(summary) == ["data", "base", "few", "tune", "evalb", "evalt"],
           f"tiny root stages {list(summary)}")
     check(all(np.isfinite(summary[s]["mean_ap"]) for s in ("evalb", "evalt")), "tiny mAPs")
-    check(counts["nms_rows"] > 0 and counts["bn_sums_fwd"] > 0, f"tiny root: {counts}")
+    check(counts["nms_rows"] > 0 and counts["bn"]["fwd"] > 0, f"tiny root: {counts}")
     return {"maps": {s: summary[s]["mean_ap"] for s in ("evalb", "evalt")},
             "seconds": seconds, **counts}
 
@@ -3575,7 +3782,7 @@ def analysis_shot_sweep(root: str) -> dict:
     check(line == json.loads(json.dumps(table)), "SHOTSWEEP line")
     check([r["shot"] for r in table["per_shot"]] == [int(s) for s in SWEEP_SHOTS.split(",")]
           and all(np.isfinite(r["mean"]) for r in table["per_shot"]), f"shot sweep {table}")
-    check(counts["nms_rows"] > 0 and counts["bn_sums_fwd"] > 0, f"shot_sweep: {counts}")
+    check(counts["nms_rows"] > 0 and counts["bn"]["fwd"] > 0, f"shot_sweep: {counts}")
     return {"shotsweep": table, "seconds": seconds, **counts}
 
 
@@ -3752,10 +3959,11 @@ def phase_analysis(seed: int, smi: str, workdir: str) -> dict:
     report["seconds"] = time.perf_counter() - t0
     report["part_seconds"] = {k: v["seconds"] for k, v in parts.items()}
     emit("analysis", **report)
-    tools = [p for p in parts.values() if "bn_sums_fwd" in p]
-    return {"bn": {"fwd": sum(p["bn_sums_fwd"] for p in tools),
-                   "bwd": sum(p["bn_sums_bwd"] for p in tools),
-                   "layout_copies": sum(p["layout_copies"] for p in tools)},
+    tools = [p for p in parts.values() if "bn" in p]
+    bn = {}
+    for p in tools:
+        add_counts(bn, p["bn"])
+    return {"bn": bn,
             "nms": {"launches": sum(p["nms_rows"] for p in tools)},
             "long": {"launches": sum(p["nms_rows_long"] for p in tools)}}
 
@@ -3773,7 +3981,8 @@ PEAK_RE = re.compile(r"^batch (\d+): peak device memory (\d+) bytes$", re.M)
 
 def bench_train_step(smi: str) -> dict:
     """bench_torch.py at its defaults: batch 384 (or the batch it fell back
-    to, with the OOM message it printed), 29 + 29 bn_sums launches a step."""
+    to, with the OOM message it printed), 29 + 29 bn_sums and bn_act launches
+    a step."""
     script = load_script("bench_torch.py")
     result, out, counts, seconds = counted(lambda: script["main"](["--device", DEVICE]), {})
     lines = out.strip().splitlines()
@@ -3784,9 +3993,9 @@ def bench_train_step(smi: str) -> dict:
     fell_back = [l for l in lines if "out of memory" in l]
     check(batch == script["BATCH"] or fell_back, "bench_torch fell back without an OOM")
     runs = 1 + len(fell_back)  # a failed batch launches some kernels too
-    check(counts["bn_sums_fwd"] >= BN_LAYERS * BENCH_STEPS and (
-        runs > 1 or counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * BENCH_STEPS),
-        f"bench_torch launched {counts}")
+    check(counts["bn"]["fwd"] >= BN_LAYERS * BENCH_STEPS, f"bench_torch launched {counts}")
+    if runs == 1:
+        check_bn_counts("bench_torch", counts["bn"], BN_LAYERS * BENCH_STEPS)
     return {"line": result, "batch": batch, "fell_back": fell_back,
             "peak_memory_bytes": peaks, "lines": lines[:-1], "seconds": seconds, **counts}
 
@@ -3806,9 +4015,11 @@ def bench_roofline(smi: str) -> dict:
           f"roofline FLOPs {result['cost_flops_per_step']} against the spec's {want}")
     for k in ("mfu_pct", "hbm_util_pct"):
         check(result[k] is not None and 0 < result[k] <= 100, f"roofline {k} = {result[k]}")
-    check(result["bn_sums_launches_per_step"] == 2 * BN_LAYERS
-          and counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * ROOFLINE_STEPS,
-          f"roofline launched {counts}, counted {result['bn_sums_launches_per_step']}")
+    check(result["bn_sums_launches_per_step"] == 2 * BN_LAYERS,
+          f"roofline counted {result['bn_sums_launches_per_step']} bn_sums launches a step")
+    check_bn_counts("roofline", counts["bn"], BN_LAYERS * ROOFLINE_STEPS)
+    check(result["bn_act_launches_per_step"] == 2 * BN_LAYERS,
+          f"roofline counted {result['bn_act_launches_per_step']} bn_act launches a step")
     return {"line": result, "lines": lines[:-1], "seconds": seconds, **counts}
 
 
@@ -3853,8 +4064,7 @@ def bench_input(smi: str) -> dict:
           f"bench_input {result}")
     steps = script["TRAIN_WARMUP"] + int(
         BENCH_INPUT_ARGS[BENCH_INPUT_ARGS.index("--train-batches") + 1])
-    check(counts["bn_sums_fwd"] == counts["bn_sums_bwd"] == BN_LAYERS * steps,
-          f"bench_input: {steps} steps launched {counts}")
+    check_bn_counts(f"bench_input's {steps} steps", counts["bn"], BN_LAYERS * steps)
     return {"line": result, "seconds": seconds, **counts}
 
 
@@ -3877,9 +4087,10 @@ def phase_bench(smi: str) -> dict:
          peak_memory_bytes=b["peak_memory_bytes"], mfu_pct=r["mfu_pct"],
          hbm_util_pct=r["hbm_util_pct"], roofline_step_ms=r["step_ms"],
          gflop_per_image=r["gflop_per_image"])
-    return {"bn": {"fwd": sum(p["bn_sums_fwd"] for p in parts.values()),
-                   "bwd": sum(p["bn_sums_bwd"] for p in parts.values()),
-                   "layout_copies": sum(p["layout_copies"] for p in parts.values())},
+    bn = {}
+    for p in parts.values():
+        add_counts(bn, p["bn"])
+    return {"bn": bn,
             "nms": {"launches": sum(p["nms_rows"] for p in parts.values())}}
 
 
@@ -3910,7 +4121,8 @@ def phase_path_inputs(recorded: dict, seed: int) -> dict:
     """Each kernel against its plain version at the inputs every path gave
     it (`PathInputs`): bn_sums on activations made at each distinct (M, C,
     dtype), with the workflow's 416 px shapes also taken to
-    MULTISCALE_TOP (M * 19^2 / 13^2); nms_rows on the rows the path's
+    MULTISCALE_TOP (M * 19^2 / 13^2); bn_act at each distinct (M, C, dtype,
+    activation), as `compare_bn_act`; nms_rows on the rows the path's
     sweeps ranked. Returns the compared bn_sums cases and the worst NMS
     mismatch."""
     report, cases, worst = {}, [], 0
@@ -3931,22 +4143,36 @@ def phase_path_inputs(recorded: dict, seed: int) -> dict:
                 bn_cases.append([m, c, res["dtype"], res["path"], res["kernel_err_over_sum_abs"],
                                  res["backward_max_abs_err"]])
                 torch.cuda.empty_cache()
+        act_cases = []
+        names = {v: k for k, v in act_mod._CODES.items()}
+        for i, (m, c, dtype, code) in enumerate(sorted(rec.act, key=lambda t: (str(t[2]), t[1], t[0]))):
+            if ("act", m, c, dtype, code) not in done:
+                y, inv, bias, dout = make_epilogue_inputs(seed + 500 + i, m, c, dtype)
+                res = compare_bn_act(y, inv, bias, dout, names.get(code, "linear"))
+                del y, dout
+                done.add(("act", m, c, dtype, code))
+                act_cases.append([m, c, res["dtype"], res["activation"], res["paths"],
+                                  res["dinv_max_err_ulps"], res["dbias_max_err_ulps"]])
+                torch.cuda.empty_cache()
         nms_cases = []
         for (r, k), (boxes, dsel) in sorted(rec.nms.items()):
             res = compare_kernel(boxes, dsel, timed=False)
             worst = max(worst, res["max_mismatch"])
             nms_cases.append({k2: res[k2] for k2 in ("shape", "valid", "kept", "max_mismatch")})
-        report[path] = {"bn_shapes": len(shapes), "bn_compared": bn_cases, "nms": nms_cases}
+        report[path] = {"bn_shapes": len(shapes), "bn_compared": bn_cases,
+                        "act_shapes": len(rec.act), "act_compared": act_cases, "nms": nms_cases}
     emit("path_inputs", seconds=time.perf_counter() - t0, bn_compared=len(cases),
          tolerance_over_sum_abs=SUM_TOL,
          bn_case_fields=["m", "c", "dtype", "path", "err_over_sum_abs", "backward_max_abs_err"],
+         act_case_fields=["m", "c", "dtype", "activation", "paths", "dinv_max_err_ulps",
+                          "dbias_max_err_ulps"],
          **report)
     check(worst == 0, f"nms_rows disagrees with nms_rows_reference on a path's rows: {worst}")
     return {"cases": cases, "nms_worst": worst}
 
 
 def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
-                 long: dict, bench: dict) -> dict:
+                 long: dict, bench: dict, act: dict) -> dict:
     """The summary of every kernel of the port. `served` and `trained` map
     each serving and training path to what it returned: its launches (read
     right after the path ran), and for the serving paths the candidate rows
@@ -3990,7 +4216,8 @@ def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
         "plain_sweep_rows": {k: plain[k] for k in plain_keys},
         "coco_sweep_rows": {k: coco["nms"][k] for k in plain_keys},
         "bench_pipeline_rows": {k: bench["nms"][k] for k in plain_keys},
-    }, long_row_entry(long, worst), *bn_kernel_entries(bn, trained, coco, bench)]}
+    }, long_row_entry(long, worst), *bn_kernel_entries(bn, trained, coco, bench),
+        *bn_act_entries(act, trained)]}
 
 
 def long_row_entry(long: dict, worst: int) -> dict:
@@ -4065,6 +4292,43 @@ def bn_kernel_entries(bn: dict, trained: dict, coco: dict, bench: dict) -> list:
     return entries
 
 
+def bn_act_entries(act: dict, trained: dict) -> list:
+    """`bn_act_fwd` and `bn_act_bwd`, timed at the bench step's first BN
+    (66,453,504, 32) in bfloat16, with the batch-64 cells' 13 x 13 layers
+    beside it, and the worst sums' error over every compared case; the
+    launches are each training path's own (`trained`, counted from 0 where
+    the path starts), as `bn_sums`' are. They replace no TPU kernel: XLA
+    fused the epilogue on the TPU."""
+    top, small = BN_ACT_TIMED["bfloat16"]
+    times = act["times"]["bfloat16"]
+    t, t13 = times[f"{top[0]}x{top[1]}"], times[f"{small[0]}x{small[1]}"]
+    entries = []
+    for way in ("fwd", "bwd"):
+        by_path = {k: v[f"act_{way}"] for k, v in trained.items()}
+        entries.append({
+            "name": f"bn_act_{way}",
+            "route": "cuda",
+            "source": "fewshot_detection_tpu_torch/csrc/bn_act.cu",
+            "replaces": None,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_err_ulps": max(max(c["dinv_max_err_ulps"], c["dbias_max_err_ulps"])
+                                for c in act["cases"]),
+            "ms": t[f"{way}_ms"],
+            "card_ms": t[f"{way}_card_ms"],
+            "plain_ms": t[f"{way}_plain_ms"],
+            "plain_card_ms": t[f"{way}_plain_card_ms"],
+            "bound_ms": t[f"{way}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": list(top),
+            "dtype": "bfloat16",
+            "batch64_13x13": {"shape": list(small), **{
+                k.split("_", 1)[1]: v for k, v in t13.items() if k.startswith(way)}},
+        })
+    return entries
+
+
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
           "debug", "int8_serve", "native", "ckpt", "files", "workflow", "coco", "dp",
           "analysis", "bench")
@@ -4094,6 +4358,7 @@ def main() -> int:
     if "kernels" in phases:
         worst, long_synthetic = phase_kernels(args.seed)
         bn = phase_bn_kernels(args.seed)
+        act = phase_bn_act_kernels(args.seed)
     served, trained, recorded = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
         for path, fn in (("serve", phase_serve), ("plain_serve", phase_plain_serve),
@@ -4150,6 +4415,10 @@ def main() -> int:
     for path, got in trained.items():
         check(got["fwd"] > 0 and got["bwd"] > 0,
               f"the {path} path never launched the bn_sums kernels")
+        # every training BN launches each pair once each way
+        check((got["act_fwd"], got["act_bwd"]) == (got["fwd"], got["bwd"]),
+              f"the {path} path launched {got['act_fwd']} + {got['act_bwd']} bn_act kernels "
+              f"against {got['fwd']} + {got['bwd']} bn_sums kernels")
     if set(phases) != set(PHASES):
         print(f"ran only {phases}: no result line", file=sys.stderr)
         return 2
@@ -4161,7 +4430,7 @@ def main() -> int:
     check(long_rows["wider"]["shape"] == [1, LONG_ROW] and long_rows["launches"] > 0,
           f"the longest WIDER row {long_rows['wider']['shape']}")
     line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained, coco, long_rows,
-                        bench)
+                        bench, act)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

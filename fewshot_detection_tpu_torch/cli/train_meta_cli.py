@@ -11,14 +11,14 @@ is `train.trainer.MetaTrainer.step`: on one device, or under `torchrun
 --nproc_per_node=N` on N devices, one replica group a rank by default
 (parallel/mesh.py; the same step as N groups on one device).
 
-Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_REMAT,
-FSD_CLIP_NORM, FSD_OVERLAP_METRICS, FSD_BN_DARKNET, FSD_WARMUP_SEEN,
-FSD_NOAUG, FSD_RAM_CACHE / FSD_RAM_CACHE_MB, FSD_PATH_MAP, FSD_NATIVE /
+Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_CLIP_NORM,
+FSD_OVERLAP_METRICS, FSD_BN_DARKNET, FSD_WARMUP_SEEN, FSD_NOAUG,
+FSD_RAM_CACHE / FSD_RAM_CACHE_MB, FSD_PATH_MAP, FSD_NATIVE /
 FSD_NATIVE_BATCH (the C++ image loader, native/), FSD_WORKERS (loader worker
 processes, data/mploader.py), FSD_ORBAX_DIR / FSD_ASYNC_CKPT (full-state
 checkpoints and resume, train/checkpoint.py) and FSD_PROFILE_DIR (a
-torch.profiler trace of each epoch, utils/profiling.py). Each epoch ends with
-the StepTimer line (data / step / sync phases and images/s). A device list
+torch.profiler trace of each epoch, utils/profiling.py). Each epoch ends
+with the StepTimer line (data / step / sync phases and images/s). A device list
 in one process raises NotImplementedError: N devices are N processes.
 """
 
@@ -205,8 +205,6 @@ def main(datacfg, darknetcfg_path, learnetcfg_path, weightfile, device="cuda",
     trainer = MetaTrainer(
         spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
         metain_type=settings.metain_type,
-        # FSD_REMAT=1: recompute activation epilogues in the backward
-        remat=os.environ.get("FSD_REMAT", "0") == "1",
         # FSD_CLIP_NORM: opt-in global-norm gradient clipping — the
         # reference never trains from random init (always darknet19
         # pretrained), where the early conf loss can diverge plain SGD

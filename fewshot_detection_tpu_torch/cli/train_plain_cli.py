@@ -11,10 +11,9 @@ checkpoints every `save_interval` epochs. The per-step compute is
 --nproc_per_node=N`, on N (one replica group a rank by default; see
 train_meta_cli).
 
-Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_REMAT,
-FSD_CLIP_NORM, FSD_WORKERS (loader worker processes, data/mploader.py), and
-those of the datasets (FSD_NOAUG, FSD_RAM_CACHE, FSD_NATIVE,
-FSD_NATIVE_BATCH, ...). As in the JAX package's plain loop there are no
+Environment switches honoured: FSD_DTYPE, FSD_INPUT_U8, FSD_CLIP_NORM,
+FSD_WORKERS (loader worker processes, data/mploader.py), and those of the
+datasets (FSD_NOAUG, FSD_RAM_CACHE, FSD_NATIVE, FSD_NATIVE_BATCH, ...). As in the JAX package's plain loop there are no
 full-state checkpoints and no trace here. A device list in one process
 raises NotImplementedError, as in the meta CLI
 (`train_meta_cli.refuse_device_list`).
@@ -112,7 +111,6 @@ def main(datacfg, cfgfile, weightfile, device="cuda", n_groups: int | None = Non
     trainer = PlainTrainer(
         spec, momentum=sched.momentum, weight_decay=sched.weight_decay,
         zero_tcls=settings.metayolo,
-        remat=os.environ.get("FSD_REMAT", "0") == "1",
         clip_norm=float(os.environ.get("FSD_CLIP_NORM", "0")),
         image_dtype=getattr(torch, compute_dtype()),
         warmup_seen=settings.warmup_seen,

@@ -83,7 +83,6 @@ STAGE_ENV = {
     "FSD_NATIVE_BATCH": "1",  # whole batches a call
     "FSD_INPUT_U8": "1",      # images to the device as uint8
     "FSD_OVERLAP_METRICS": "1",
-    "FSD_REMAT": "1",
 }
 EVAL_ENV = {"FSD_EVAL_BATCH": "16"}
 

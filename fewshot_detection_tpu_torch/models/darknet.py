@@ -58,12 +58,11 @@ def apply_conv_layer(
     p: dict[str, Any],
     x: torch.Tensor,
     train: bool = False,
-    remat: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """conv [+ BN] [+ activation]; returns (y, new_bn_stats|None)."""
     y = conv2d(x, p["w"], layer.stride, layer.pad, layer.groups)
     if layer.batch_normalize and train:
-        return bn_train_activate(y, p["bn"], layer.activation, remat)
+        return bn_train_activate(y, p["bn"], layer.activation)
     if layer.batch_normalize:
         y = batchnorm_apply(y, p["bn"])
     elif "b" in p:
@@ -149,12 +148,12 @@ def can_fuse_s2d_stem(spec: NetSpec) -> bool:
     return ok and not any(s in (0, 1) for layer in spec.layers[2:] for s in layer.sources)
 
 
-def run_s2d_stem(spec: NetSpec, params: Params, x: torch.Tensor, train: bool, remat: bool):
+def run_s2d_stem(spec: NetSpec, params: Params, x: torch.Tensor, train: bool):
     """Layers 0-1 of an eligible network as the space-to-depth stem; returns
     (output of layer 1, new BN stats of layer 0 or None)."""
     p = params[0]
     return stem_s2d_conv_pool(x, p["w"], p.get("bn"), spec.layers[0].activation, p.get("b"),
-                              train, remat)
+                              train)
 
 
 def apply_network(
@@ -165,7 +164,6 @@ def apply_network(
     train: bool = False,
     start: int = 0,
     stop: int | None = None,
-    remat: bool = False,
     s2d_stem: bool = False,
     observe=None,
     act_scales=None,
@@ -176,9 +174,7 @@ def apply_network(
     per-split dynamic-weight outputs, darknet_meta.py:120-126).
 
     ``start``/``stop`` run a sub-range of layers (used for feat_layer>0
-    learnet stems and partial-backbone extraction). ``remat`` (training
-    only) recomputes the BN/activation epilogues in the backward, see
-    `bn_train_activate`. ``s2d_stem=True`` computes an eligible conv+pool
+    learnet stems and partial-backbone extraction). ``s2d_stem=True`` computes an eligible conv+pool
     stem (`can_fuse_s2d_stem`) in space-to-depth form, the same function.
 
     ``observe(layer_index, x)`` is called with every static conv's input
@@ -192,7 +188,7 @@ def apply_network(
     layers = spec.layers[start:end]
 
     if s2d_stem and start == 0 and end >= 2 and can_fuse_s2d_stem(spec):
-        x, stats = run_s2d_stem(spec, params, x, train, remat)
+        x, stats = run_s2d_stem(spec, params, x, train)
         if stats is not None:
             bn_updates[0] = stats
         outputs[1] = x
@@ -211,7 +207,7 @@ def apply_network(
 
                 x = conv_int8(layer, p, x, act_scales[layer.index])
             else:
-                x, stats = apply_conv_layer(layer, p, x, train, remat)
+                x, stats = apply_conv_layer(layer, p, x, train)
                 if stats is not None:
                     bn_updates[layer.index] = stats
         elif kind == "maxpool":

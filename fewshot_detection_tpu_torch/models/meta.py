@@ -82,7 +82,6 @@ def meta_forward(
     *,
     metain_type: int = 2,
     train: bool = False,
-    remat: bool = False,
     s2d: bool = False,
     act_scales: dict[int, float] | None = None,
     observe=None,
@@ -107,8 +106,7 @@ def meta_forward(
         if done_split:
             metax = torch.cat([metax[..., :3], metax[..., 3:]], dim=0)
         metax, aux = apply_network(
-            spec.darknet, params["darknet"], metax, train=train, stop=feat_layer, remat=remat,
-            s2d_stem=s2d,
+            spec.darknet, params["darknet"], metax, train=train, stop=feat_layer, s2d_stem=s2d,
         )
         bn_updates["darknet_stem"] = aux["bn_updates"]
         if done_split:
@@ -119,8 +117,8 @@ def meta_forward(
             raise ValueError(f"metain_type {metain_type} requires a mask input")
         metax = torch.cat([metax, mask.to(metax.dtype)], dim=-1)
 
-    out, aux = apply_network(spec.learnet, params["learnet"], metax, train=train, remat=remat,
-                             s2d_stem=s2d, act_scales=act_scales, observe=observe)
+    out, aux = apply_network(spec.learnet, params["learnet"], metax, train=train, s2d_stem=s2d,
+                             act_scales=act_scales, observe=observe)
     bn_updates["learnet"] = aux["bn_updates"]
     return list(aux["splits"]) + [out], {"bn_updates": bn_updates}
 
@@ -297,7 +295,6 @@ def detect_forward(
     *,
     train: bool = False,
     fuse: bool = True,
-    remat: bool = False,
     s2d: bool = False,
     act_scales: dict[int, float] | None = None,
     observe=None,
@@ -327,7 +324,7 @@ def detect_forward(
 
     start_li = 0
     if s2d and can_fuse_s2d_stem(spec.darknet):
-        x, stats = run_s2d_stem(spec.darknet, dparams, x, train, remat)
+        x, stats = run_s2d_stem(spec.darknet, dparams, x, train)
         if stats is not None:
             bn_updates[0] = stats
         outputs[1] = x
@@ -377,7 +374,7 @@ def detect_forward(
                     x = dynamic_conv_general(x, dw, layer, is_first=is_first)
                     if layer.batch_normalize and train:
                         x, stats = bn_train_activate(
-                            x, dparams[layer.index]["bn"], layer.activation, remat
+                            x, dparams[layer.index]["bn"], layer.activation
                         )
                         bn_updates[layer.index] = stats
                     else:
@@ -392,7 +389,7 @@ def detect_forward(
                 if not train and p is not None and "wq" in p:
                     x = conv_int8(layer, p, x, act_scales[layer.index])
                 else:
-                    x, stats = apply_conv_layer(layer, p, x, train, remat)
+                    x, stats = apply_conv_layer(layer, p, x, train)
                     if stats is not None:
                         bn_updates[layer.index] = stats
         elif kind == "maxpool":
@@ -446,15 +443,14 @@ def forward(
     metain_type: int = 2,
     train: bool = False,
     fuse: bool = True,
-    remat: bool = False,
     s2d: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Full episodic forward (darknet_meta.py:197-201)."""
     dynamic_weights, maux = meta_forward(
-        spec, params, metax, mask, metain_type=metain_type, train=train, remat=remat, s2d=s2d
+        spec, params, metax, mask, metain_type=metain_type, train=train, s2d=s2d
     )
     y, daux = detect_forward(
-        spec, params, x, dynamic_weights, train=train, fuse=fuse, remat=remat, s2d=s2d
+        spec, params, x, dynamic_weights, train=train, fuse=fuse, s2d=s2d
     )
     return y, {
         "bn_updates": {"darknet": daux["bn_updates"], **maux["bn_updates"]},

@@ -5,7 +5,8 @@ NHWC at every function boundary, as in the JAX package; the pooling ops hand
 PyTorch a permuted NCHW *view* of the same memory (which PyTorch sees as a
 `channels_last` tensor), so no layout copy is made in either direction.
 Training BatchNorm takes its statistics from the `bn_sums` kernel
-(`ops/bn_sums.py`), not from `F.batch_norm`.
+(`ops/bn_sums.py`), not from `F.batch_norm`, and its normalise + activation
+epilogue from the `bn_act` kernel (`ops/bn_act.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .bn_act import bn_act
 from .bn_sums import bn_sums
 
 BN_EPS = 1e-5
@@ -136,7 +138,6 @@ def stem_s2d_conv_pool(
     activation: str,
     bias: torch.Tensor | None,
     train: bool,
-    remat: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """conv3x3(s1,p1) + [BN] + [activation] + maxpool(2,2) on (B, H, W, C),
     computed as a conv on the space-to-depth input whose output holds the
@@ -155,7 +156,7 @@ def stem_s2d_conv_pool(
     y = y.reshape(b, h // 2, wd // 2, 4, k)
     new_stats = None
     if bn is not None and train:
-        y, new_stats = bn_train_activate(y, bn, activation, remat)
+        y, new_stats = bn_train_activate(y, bn, activation)
     else:
         if bn is not None:
             y = batchnorm_apply(y, bn)
@@ -219,25 +220,12 @@ def batchnorm_train(x: torch.Tensor, bn: dict) -> tuple[torch.Tensor, dict]:
     return bn_normalize(x, inv, bias), new_stats
 
 
-def _normalize_activate(y, inv, bias, activation: str) -> torch.Tensor:
-    return _activate(bn_normalize(y, inv, bias), activation)
-
-
-def bn_train_activate(
-    y: torch.Tensor, bn: dict, activation: str, remat: bool = False
-) -> tuple[torch.Tensor, dict]:
+def bn_train_activate(y: torch.Tensor, bn: dict, activation: str) -> tuple[torch.Tensor, dict]:
     """Training BN + activation on a conv output; returns (out, new stats).
 
-    ``remat=True`` keeps the conv output and the batch statistics and
-    recomputes only the normalize/activation epilogue in the backward (the
-    tensors the JAX trainer's rematerialization policy saves). The
-    statistics stay outside the checkpointed function: recomputing them
-    would launch the `bn_sums` kernel once more over the whole conv output."""
+    The statistics come from `bn_sums`, the normalise + activation epilogue
+    from `bn_act`, whose backward rebuilds the normalised values from the
+    conv output and the pair it keeps: the epilogue saves no tensor of its
+    own, which is what the JAX trainer's rematerialization saves too."""
     inv, bias, new_stats = bn_train_affine(y, bn)
-    if remat:
-        from torch.utils.checkpoint import checkpoint
-
-        out = checkpoint(_normalize_activate, y, inv, bias, activation, use_reentrant=False)
-    else:
-        out = _normalize_activate(y, inv, bias, activation)
-    return out, new_stats
+    return bn_act(y, inv, bias, activation), new_stats

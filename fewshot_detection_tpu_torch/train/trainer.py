@@ -33,6 +33,7 @@ from ..eval.detector import resolve_device
 from ..models import meta as meta_mod
 from ..models.darknet import apply_network
 from ..models.spec import NetSpec
+from ..ops.bn_act import bn_act
 from ..ops.bn_sums import bn_sums
 from ..ops.region_loss import region_loss, region_loss_v2
 from ..utils.profiling import span, step_span
@@ -89,7 +90,7 @@ class _GroupTrainer:
     _KEYS: tuple[str, ...] = ()
     _DECAY_BN_AND_BIAS = True
 
-    def __init__(self, *, momentum, weight_decay, remat, clip_norm, image_dtype,
+    def __init__(self, *, momentum, weight_decay, clip_norm, image_dtype,
                  warmup_seen, device, mesh=None):
         self.device = resolve_device(device)
         # the data-parallel world (parallel.Mesh), or None for one process
@@ -102,9 +103,6 @@ class _GroupTrainer:
         self.warmup_seen = warmup_seen
         # compute dtype that uint8-shipped inputs decode to (FSD_INPUT_U8)
         self.image_dtype = image_dtype
-        # keep conv outputs and BN batch statistics, recompute the
-        # normalize/activation epilogues in the backward
-        self.remat = remat
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, non_blocking=True)
@@ -144,11 +142,12 @@ class _GroupTrainer:
         as 0-d tensors left on the device (summed over the groups, and over
         the ranks with a mesh). With a mesh, `batch` holds this rank's
         groups only. Spans: `train.step`, which starts a step identifier
-        and counts the step's `bn_sums` kernel launches, around those of
-        `loss_and_grads`, `train.allreduce` (with a mesh) and
-        `train.update` (the BN merge, `sgd_update`, `_apply_bn`)."""
+        and counts the step's `bn_sums` and `bn_act` kernel launches,
+        around those of `loss_and_grads`, `train.allreduce` (with a mesh)
+        and `train.update` (the BN merge, `sgd_update`, `_apply_bn`)."""
         with step_span("train.step") as sp:
             fwd, bwd = bn_sums.launches, bn_sums.backward_launches
+            act_fwd, act_bwd = bn_act.launches, bn_act.backward_launches
             _, grads, bns, metrics = self.loss_and_grads(params, batch, seen)
             if self.mesh is not None:
                 # this rank's groups summed, then everything summed over the
@@ -171,6 +170,8 @@ class _GroupTrainer:
                 self._apply_bn(params, bn)
             sp.add("bn_sums_forward", bn_sums.launches - fwd)
             sp.add("bn_sums_backward", bn_sums.backward_launches - bwd)
+            sp.add("bn_act_forward", bn_act.launches - act_fwd)
+            sp.add("bn_act_backward", bn_act.backward_launches - act_bwd)
         return params, mom, metrics
 
 
@@ -207,7 +208,11 @@ class MetaTrainer(_GroupTrainer):
         device="cuda",
         mesh=None,
     ):
-        super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
+        # `remat` is accepted and ignored: the JAX trainer's
+        # rematerialization keeps the conv outputs and BN statistics, which
+        # is all that training BN keeps here (ops/layers.py:bn_train_activate)
+        del remat
+        super().__init__(momentum=momentum, weight_decay=weight_decay,
                          clip_norm=clip_norm, image_dtype=image_dtype,
                          warmup_seen=warmup_seen, device=device, mesh=mesh)
         self.spec = spec
@@ -223,8 +228,7 @@ class MetaTrainer(_GroupTrainer):
         n_cls = metax.shape[0]
         y, aux = meta_mod.forward(
             self.spec, params, x, metax, mask,
-            metain_type=self.metain_type, train=True, fuse=self.fuse, remat=self.remat,
-            s2d=self.s2d,
+            metain_type=self.metain_type, train=True, fuse=self.fuse, s2d=self.s2d,
         )
         loss, metrics = region_loss_v2(
             y, target, keep, seen, self.region, n_cls, warmup_seen=self.warmup_seen
@@ -257,8 +261,8 @@ class PlainTrainer(_GroupTrainer):
     tensors on any device: x (R, b, H, W, 3), target (R, b, 50, 5), keep
     (R, b); seen and lr as for MetaTrainer. Weight decay exempts BN affine
     and biases (train.py:132-138). Every training BN goes through the
-    `bn_sums` kernels, one forward and one backward launch a BN layer and
-    group."""
+    `bn_sums` and `bn_act` kernels, one forward and one backward launch of
+    each a BN layer and group."""
 
     _KEYS = ("x", "target", "keep")
     _DECAY_BN_AND_BIAS = False
@@ -278,7 +282,11 @@ class PlainTrainer(_GroupTrainer):
         device="cuda",
         mesh=None,
     ):
-        super().__init__(momentum=momentum, weight_decay=weight_decay, remat=remat,
+        # `remat` is accepted and ignored: the JAX trainer's
+        # rematerialization keeps the conv outputs and BN statistics, which
+        # is all that training BN keeps here (ops/layers.py:bn_train_activate)
+        del remat
+        super().__init__(momentum=momentum, weight_decay=weight_decay,
                          clip_norm=clip_norm, image_dtype=image_dtype,
                          warmup_seen=warmup_seen, device=device, mesh=mesh)
         self.spec = spec
@@ -288,8 +296,7 @@ class PlainTrainer(_GroupTrainer):
 
     def _episode_loss(self, params, x, target, keep, seen):
         (x,) = _decode_images((x,), self.image_dtype)
-        y, aux = apply_network(self.spec, params, x, train=True, remat=self.remat,
-                               s2d_stem=self.s2d)
+        y, aux = apply_network(self.spec, params, x, train=True, s2d_stem=self.s2d)
         loss, metrics = region_loss(
             y, target, keep, seen, self.region, zero_tcls=self.zero_tcls,
             warmup_seen=self.warmup_seen,

@@ -25,7 +25,7 @@ put back after the native modes, so that they also run on a host without
 PIL: with neither set, as in the JAX script, they decode with PIL.
 
 --train runs the port's MetaTrainer (flagship cfgs, seeded parameters, 15-way,
-FSD_DTYPE and FSD_REMAT as the JAX script reads them) on `--device`, its
+FSD_DTYPE as the JAX script reads it) on `--device`, its
 batches made by cli/train_meta_cli.py:make_episode_batch from a
 data/loader.py:prefetch thread: 3 warm-up steps, then --train-batches
 timed ones.
@@ -193,8 +193,7 @@ def bench_trained(d, data_options, settings, lines, batch_size, n_batches, dev):
     init = init_meta_params(spec, 0)
     params = require_grads({k: from_jax_params(getattr(spec, k), init[k], dev)
                             for k in ("darknet", "learnet")})
-    trainer = MetaTrainer(spec, momentum=0.9, weight_decay=0.0005,
-                          remat=os.environ.get("FSD_REMAT", "0") == "1", device=dev)
+    trainer = MetaTrainer(spec, momentum=0.9, weight_decay=0.0005, device=dev)
     mom = init_momentum(params)
     nprng = np.random.RandomState(0)
     dtype = os.environ.get("FSD_DTYPE", "float32")

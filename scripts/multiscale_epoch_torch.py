@@ -6,7 +6,7 @@ The reference resizes its training input every 64 samples once seen >=
 256k (dataset.py:223-245 in the reference, {320..608 step 32}). This script
 is the counterpart of scripts/multiscale_epoch.py, with the same argv (and a
 --device, default cuda), prints and MSJSON line, on the flagship
-MetaTrainer (cfg/darknet_dynamic.cfg + cfg/reweighting_net.cfg, remat,
+MetaTrainer (cfg/darknet_dynamic.cfg + cfg/reweighting_net.cfg,
 bfloat16 episodes, 15-way, batch 32 by default):
 
   phase A  per-bucket first step and the mean of 3 further steps, images/s
@@ -121,7 +121,7 @@ def main(argv=None):
     init = init_meta_params(spec, 0)
     params = require_grads({k: from_jax_params(getattr(spec, k), init[k], dev)
                             for k in ("darknet", "learnet")})
-    trainer = MetaTrainer(spec, momentum=0.9, weight_decay=0.0005, remat=True,
+    trainer = MetaTrainer(spec, momentum=0.9, weight_decay=0.0005,
                           image_dtype=torch.bfloat16, device=dev)
     mom = init_momentum(params)
     rng = np.random.RandomState(0)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Roofline of the PyTorch port's bench step (batch 384, remat, bfloat16) on
+"""Roofline of the PyTorch port's bench step (batch 384, bfloat16) on
 the card.
 
 The counterpart of scripts/roofline_b384.py. The step is bench_torch.py's
@@ -17,10 +17,11 @@ program, so one whole step, forward and backward, is counted as it runs:
          tensor outputs written once. A broadcast input counts the memory
          it spans, not its shape; an in-place op counts its operand read
          and written; view ops and allocations move nothing. The bn_sums
-         kernels are ctypes calls the mode cannot see: their bytes come
-         from the shapes their wrapper was given (the forward reads x and
-         writes 2*C floats; the backward reads x, dsum and dsq and writes
-         dx).
+         and bn_act kernels are ctypes calls the mode cannot see: their
+         bytes come from the shapes their wrappers were given (bn_sums'
+         forward reads x and writes 2*C floats, its backward reads x, dsum
+         and dsq and writes dx; bn_act's forward reads y and writes out,
+         its backward reads dout and y and writes dy, each with the pair).
 
 Then 2 warm-up and 5 timed steps give the step time, and the roofline
 shares are taken against the card's published dense bfloat16 tensor peak
@@ -169,18 +170,44 @@ def bn_sums_bytes(record: list):
         bn_mod._launch_forward, bn_mod._launch_backward = fwd, bwd
 
 
+@contextlib.contextmanager
+def bn_act_bytes(record: list):
+    """Appends the bytes each bn_act kernel launch moves to `record`, by
+    standing in for the wrapper's two launch functions: the forward reads y
+    and writes out, the backward reads dout and y and writes dy; the pair
+    (2 x C floats) is read and its gradients written."""
+    from fewshot_detection_tpu_torch.ops import bn_act as act_mod
+
+    fwd, bwd = act_mod._launch_forward, act_mod._launch_backward
+
+    def forward(y, inv, bias, act):
+        record.append(2 * y.numel() * y.element_size() + 2 * y.shape[-1] * 4)
+        return fwd(y, inv, bias, act)
+
+    def backward(dout, y, inv, bias, act):
+        record.append(3 * y.numel() * y.element_size() + 4 * y.shape[-1] * 4)
+        return bwd(dout, y, inv, bias, act)
+
+    act_mod._launch_forward, act_mod._launch_backward = forward, backward
+    try:
+        yield record
+    finally:
+        act_mod._launch_forward, act_mod._launch_backward = fwd, bwd
+
+
 def count_step(trainer, params, mom, batch, seen: int) -> dict:
     """One training step with its FLOPs and bytes counted (the step is
     taken: params and mom move)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    kernel = []
+    kernel, epilogue = [], []
     with FlopCounterMode(display=False) as flops, _byte_counter(trainer.device) as mode, \
-            bn_sums_bytes(kernel):
+            bn_sums_bytes(kernel), bn_act_bytes(epilogue):
         _, _, metrics = trainer.step(params, mom, batch, seen=seen, lr=1e-5)
         float(metrics["loss"])
     return {"flops": flops.get_total_flops(), "aten_bytes": mode.bytes, "aten_ops": mode.ops,
-            "bn_sums_bytes": sum(kernel), "bn_sums_launches": len(kernel)}
+            "bn_sums_bytes": sum(kernel), "bn_sums_launches": len(kernel),
+            "bn_act_bytes": sum(epilogue), "bn_act_launches": len(epilogue)}
 
 
 def main(argv=None):
@@ -213,7 +240,7 @@ def main(argv=None):
     batch = bench_torch.make_batch(BATCH, dev, SIZE, N_CLS)
     counted = count_step(trainer, p, m, batch, seen=20000)
     flops = counted["flops"]
-    bytes_acc = counted["aten_bytes"] + counted["bn_sums_bytes"]
+    bytes_acc = counted["aten_bytes"] + counted["bn_sums_bytes"] + counted["bn_act_bytes"]
     want = spec_flops(trainer.spec, BATCH, N_CLS, SIZE)
 
     for i in range(WARMUP):
@@ -244,6 +271,8 @@ def main(argv=None):
         "aten_ops_per_step": counted["aten_ops"],
         "bn_sums_bytes_per_step": counted["bn_sums_bytes"],
         "bn_sums_launches_per_step": counted["bn_sums_launches"],
+        "bn_act_bytes_per_step": counted["bn_act_bytes"],
+        "bn_act_launches_per_step": counted["bn_act_launches"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if on_card else None,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
     }

@@ -287,6 +287,17 @@ def test_roofline_byte_count_rules(roofline, monkeypatch):
     assert calls == ["f", "b"]
     assert record == [10 * 6 * 2 + 2 * 6 * 4, 2 * 10 * 6 * 2 + 2 * 6 * 4]
 
+    from fewshot_detection_tpu_torch.ops import bn_act as act_mod
+
+    calls.clear()
+    monkeypatch.setattr(act_mod, "_launch_forward", lambda *t: calls.append("f"))
+    monkeypatch.setattr(act_mod, "_launch_backward", lambda *t: calls.append("b"))
+    with roofline.bn_act_bytes([]) as record:
+        act_mod._launch_forward(a, None, None, 0)
+        act_mod._launch_backward(a, a, None, None, 0)
+    assert calls == ["f", "b"]
+    assert record == [2 * 10 * 6 * 2 + 2 * 6 * 4, 3 * 10 * 6 * 2 + 4 * 6 * 4]
+
 
 def test_roofline_refuses_a_card_without_a_published_peak(roofline):
     assert roofline.peaks_of("NVIDIA H100 80GB HBM3") == {"bf16_tflops": 989.4,

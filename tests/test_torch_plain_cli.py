@@ -185,11 +185,11 @@ def test_yolo_joint_merges_the_support_lists_like_the_jax_cli(ws, monkeypatch, c
 
 
 def test_bfloat16_remat_and_two_groups_run(ws, monkeypatch, capsys):
-    """FSD_DTYPE=bfloat16 with FSD_REMAT=1 and FSD_CLIP_NORM, and a batch of
-    4 split into two groups of 2, run one after another."""
+    """FSD_DTYPE=bfloat16 with FSD_CLIP_NORM, and a batch of 4 split into
+    two groups of 2, run one after another. (The port reads no FSD_REMAT:
+    training BN keeps only what the JAX package's remat keeps.)"""
     monkeypatch.setattr(t_cli, "time", types.SimpleNamespace(time=lambda: 1234.0))
     monkeypatch.setenv("FSD_DTYPE", "bfloat16")
-    monkeypatch.setenv("FSD_REMAT", "1")
     monkeypatch.setenv("FSD_CLIP_NORM", "10")
     capsys.readouterr()
     t_cli.main(ws["torch_cfg"], ws["cfg"], ws["init_w"], device="cpu", n_groups=2)

@@ -170,8 +170,9 @@ def _run(spec, params, batches, seens, lrs, **kw):
 
 
 def test_remat_equals_no_remat(tiny):
-    """Rematerialization recomputes the same operations on the same values:
-    bit-equal on the CPU."""
+    """`remat=True` is accepted, as the JAX trainer's keyword, and changes
+    nothing: training BN keeps only what rematerialization keeps. Bit-equal
+    on the CPU."""
     spec, _, params, _ = tiny
     batches = [_batch(40 + i, R=2, b=1) for i in range(2)]
     args = (batches, [20002, 20004], [1e-3, 2e-3])

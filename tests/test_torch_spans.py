@@ -179,8 +179,9 @@ def test_a_train_step_records_its_phases_in_order(kind, tmp_path):
     assert [s.counts.get("group") for s in spans[2:4]] == [0, 1]
     want = sum(torch.as_tensor(batch[k]).nbytes for k in trainer._KEYS)
     assert spans[1].counts == {"bytes": want}
-    # the plain bn_sums versions serve CPU tensors: no kernel launches
-    assert step.counts == {"bn_sums_forward": 0, "bn_sums_backward": 0}
+    # the plain bn_sums and bn_act versions serve CPU tensors: no kernel launches
+    assert step.counts == {"bn_sums_forward": 0, "bn_sums_backward": 0,
+                           "bn_act_forward": 0, "bn_act_backward": 0}
     for a, b in zip(spans[1:6], spans[2:6]):
         assert a.end <= b.start
     assert step.start <= spans[1].start and spans[5].end <= step.end <= spans[6].start
@@ -411,8 +412,8 @@ def test_a_kernel_launched_inside_a_span_starts_after_the_span(card, tmp_path):
 @pytest.mark.card
 def test_a_traced_card_step_puts_its_idle_down_to_its_spans(card, tmp_path):
     """Three plain steps on the card under `trace()`: the idle goes to the
-    step's spans, `train.step` counts one bn_sums launch a BN layer and a
-    replica group each way, and each `train.sync` ends after its step's last kernel (the
+    step's spans, `train.step` counts one bn_sums and one bn_act launch a BN
+    layer and a replica group each way, and each `train.sync` ends after its step's last kernel (the
     device's times shifted by their launches)."""
     trainer, tp, batch = _plain_setup(str(tmp_path))
     spec = trainer.spec
@@ -437,6 +438,8 @@ def test_a_traced_card_step_puts_its_idle_down_to_its_spans(card, tmp_path):
     n_bn = sum(1 for layer in spec.layers if layer.batch_normalize) * len(batch["x"])
     assert len(steps) == 3
     assert [(e["args"]["bn_sums_forward"], e["args"]["bn_sums_backward"]) for e in steps] == [
+        (n_bn, n_bn)] * 3
+    assert [(e["args"]["bn_act_forward"], e["args"]["bn_act_backward"]) for e in steps] == [
         (n_bn, n_bn)] * 3
     complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
     device = [e for e in complete if e.get("cat") in ts.GPU_CATEGORIES]

@@ -195,7 +195,6 @@ def test_second_run_resumes_from_the_saved_seen(ws, torch_run, capsys):
 def test_overlap_metrics_prints_the_same_lines_one_step_late(ws, torch_run, monkeypatch, capsys):
     _pin_clock(monkeypatch)
     monkeypatch.setenv("FSD_OVERLAP_METRICS", "1")
-    monkeypatch.setenv("FSD_REMAT", "1")
     capsys.readouterr()
     t_cli.main(ws["torch_cfg"], ws["dk"], ws["ln"], ws["init_w"], device="cpu")
     got = [m.group(0) for m in _loss_lines(capsys.readouterr().out)]

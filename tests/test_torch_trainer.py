@@ -186,8 +186,9 @@ def two_steps(tiny):
 
 
 def test_remat_equals_no_remat(tiny, two_steps):
-    """Rematerialization recomputes the same operations on the same values:
-    bit-equal on the CPU."""
+    """`remat=True` is accepted, as the JAX trainer's keyword, and changes
+    nothing: training BN keeps only what rematerialization keeps. Bit-equal
+    on the CPU."""
     batches, seens, lrs, base = two_steps
     _assert_runs_equal(_run(tiny[0], tiny[2], batches, seens, lrs, remat=True), base)
 
