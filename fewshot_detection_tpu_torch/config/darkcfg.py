@@ -147,8 +147,13 @@ def propagate_shapes(
             splits = [int(s) for s in block["splits"].split(",")]
             c = splits[-1]
             push("split")
-        elif kind in ("softmax", "cost", "region"):
+        elif kind in ("softmax", "cost", "region", "yolo"):
             push(kind)
+        elif kind == "upsample":
+            stride = int(block["stride"])
+            w *= stride
+            h *= stride
+            push("upsample")
         elif kind == "reorg":
             stride = int(block["stride"])
             c = stride * stride * c
@@ -210,7 +215,7 @@ def format_net_table(blocks: list[dict[str, str]]) -> str:
         extra = ""
         if block["type"] == "convolutional":
             extra = f"{block['size']}x{block['size']}/{block['stride']}"
-        elif block["type"] in ("maxpool", "reorg"):
+        elif block["type"] in ("maxpool", "reorg", "upsample"):
             extra = f"/{block.get('stride', '1')}"
         elif block["type"] == "route":
             extra = block["layers"]

@@ -1,9 +1,10 @@
 """Functional executor for static (non-dynamic) darknet graphs.
 
 `init_params` / `apply_network` are the init/apply pair for a compiled
-`NetSpec`: plain YOLOv2 backbones and the reweighting learnet
-(cfg/reweighting_net.cfg). The meta detection path (dynamic convs,
-class-broadcast routes) lives in models/meta.py.
+`NetSpec`: plain YOLOv2 backbones, YOLOv3 (residual shortcuts, upsampling,
+two-source routes and three [yolo] heads; cfg/yolov3.cfg) and the
+reweighting learnet (cfg/reweighting_net.cfg). The meta detection path
+(dynamic convs, class-broadcast routes) lives in models/meta.py.
 
 Activations are NHWC at every boundary, as in the JAX package. Parameters
 are the tensor tree of `models.convert` (conv weights OIHW). The reference's
@@ -30,6 +31,7 @@ from ..ops.layers import (
     maxpool_stride1,
     reorg,
     stem_s2d_conv_pool,
+    upsample_nearest,
 )
 from .spec import LayerSpec, NetSpec
 
@@ -168,7 +170,9 @@ def apply_network(
     observe=None,
     act_scales=None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Run a static network. Returns (output, aux) where aux carries
+    """Run a static network. Returns (output, aux), the output a tuple of
+    the [yolo] heads' inputs in order for a net that has such heads
+    (`NetSpec.yolo_heads`), else the last layer's; aux carries
     ``bn_updates`` ({layer_index: new stats} when train=True) and
     ``splits`` (tensors emitted by [split] layers, in order — the learnet's
     per-split dynamic-weight outputs, darknet_meta.py:120-126).
@@ -184,6 +188,7 @@ def apply_network(
     outputs: dict[int, torch.Tensor] = {}
     bn_updates: dict[int, dict] = {}
     splits: list[torch.Tensor] = []
+    heads: list[torch.Tensor] = []
     end = stop if stop is not None else len(spec.layers)
     layers = spec.layers[start:end]
 
@@ -237,13 +242,17 @@ def apply_network(
             xs = torch.split(x, list(layer.splits), dim=-1)
             splits.append(xs[0])
             x = xs[-1]
+        elif kind == "upsample":
+            x = upsample_nearest(x, layer.stride)
+        elif kind == "yolo":
+            heads.append(x)  # loss metadata; the head is the preceding conv
         elif kind in ("region", "cost"):
             pass  # loss metadata only; output is the preceding conv
         else:
             raise ValueError(f"unhandled layer kind {kind!r}")
         outputs[layer.index] = x
 
-    return x, {"bn_updates": bn_updates, "splits": splits}
+    return (tuple(heads) if heads else x), {"bn_updates": bn_updates, "splits": splits}
 
 
 def fold_batchnorm(spec: NetSpec, params: Params) -> Params:

@@ -41,12 +41,32 @@ class RegionSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class YoloSpec:
+    """[yolo] block metadata (darknet's yolo_layer.c): all `num` anchors in
+    input pixels, the indices of those this head predicts (`mask`), the
+    class count, and the IoU above which a prediction's no-object term is
+    dropped (`ignore_thresh`). `truth_thresh` is read and not used: the
+    published cfgs set it to 1, where darknet's branch never fires."""
+
+    mask: tuple[int, ...] = ()
+    anchors: tuple[float, ...] = ()
+    num_classes: int = 0
+    num: int = 0
+    ignore_thresh: float = 0.5
+    truth_thresh: float = 1.0
+
+    @property
+    def anchor_wh(self) -> tuple[tuple[float, float], ...]:
+        return tuple((self.anchors[2 * n], self.anchors[2 * n + 1]) for n in range(self.num))
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One resolved layer. Unused fields stay at their defaults."""
 
     index: int
     kind: str  # conv|maxpool|reorg|route|shortcut|connected|globalmax|
-    #            globalavg|avgpool|softmax|split|region|cost
+    #            globalavg|avgpool|softmax|split|region|cost|upsample|yolo
     in_channels: int = 0
     out_channels: int = 0
     # conv
@@ -66,6 +86,8 @@ class LayerSpec:
     splits: tuple[int, ...] = ()
     # region
     region: RegionSpec | None = None
+    # yolo
+    yolo: YoloSpec | None = None
 
     @property
     def has_params(self) -> bool:
@@ -98,9 +120,15 @@ class NetSpec:
         return None
 
     @property
+    def yolo_heads(self) -> tuple[YoloSpec, ...]:
+        """The [yolo] heads in order: the outputs `apply_network` returns
+        for such a net, one a head."""
+        return tuple(l.yolo for l in self.layers if l.kind == "yolo")
+
+    @property
     def out_channels(self) -> int:
         for l in reversed(self.layers):
-            if l.kind not in ("region", "cost"):
+            if l.kind not in ("region", "cost", "yolo"):
                 return l.out_channels
         return self.channels
 
@@ -251,6 +279,26 @@ def build_spec(blocks: list[dict[str, str]]) -> NetSpec:
                 )
             )
             prev_c = splits[-1]
+        elif kind == "upsample":
+            layers.append(
+                LayerSpec(
+                    index=ind,
+                    kind="upsample",
+                    in_channels=prev_c,
+                    out_channels=prev_c,
+                    stride=int(block["stride"]),
+                )
+            )
+        elif kind == "yolo":
+            yolo = YoloSpec(
+                mask=tuple(int(m) for m in block["mask"].split(",")),
+                anchors=tuple(float(a) for a in block["anchors"].split(",")),
+                num_classes=int(block["classes"]),
+                num=int(block["num"]),
+                ignore_thresh=float(block.get("ignore_thresh", "0.5")),
+                truth_thresh=float(block.get("truth_thresh", "1")),
+            )
+            layers.append(LayerSpec(index=ind, kind="yolo", out_channels=prev_c, yolo=yolo))
         elif kind == "region":
             anchors = tuple(float(a) for a in block["anchors"].split(","))
             region = RegionSpec(

@@ -91,6 +91,15 @@ def maxpool_stride1(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 1).permute(0, 2, 3, 1)
 
 
+def upsample_nearest(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """Nearest-neighbour upsampling by `stride` of NHWC x (darknet's
+    [upsample]): output pixel (y, x) is input pixel (y // stride, x //
+    stride). The interpolation sees the channels-last view, so its output
+    is NHWC memory again."""
+    return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=stride,
+                         mode="nearest").permute(0, 2, 3, 1)
+
+
 def space_to_depth(x: torch.Tensor, s: int = 2) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/s, W/s, s*s*C), channel layout (v*s+u)*C + c
     for pixel offset (v, u) inside each s x s block (the layout of `reorg`)."""

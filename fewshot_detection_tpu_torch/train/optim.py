@@ -103,23 +103,32 @@ def sgd_update(
     BN running stats pass through untouched. clip_norm > 0 applies
     global-norm gradient clipping first (an opt-in extension — see
     clip_by_global_norm). Returns (params, momentum_buf), the trees it was
-    given."""
+    given.
+
+    The leaves are updated as lists, one a weight-decay value, by
+    `torch._foreach_*` operations: each leaf takes the same elementwise
+    operations as alone (the same bits), in a few launches a list instead of
+    five a leaf, which at YOLOv3's 222 leaves was a fifth of the host's
+    work a step."""
     if clip_norm and clip_norm > 0:
         grads = clip_by_global_norm(grads, clip_norm)
     g_leaves = dict(tree_leaves_with_path(grads))
     m_leaves = dict(tree_leaves_with_path(momentum_buf))
+    groups: dict[float, tuple[list, list, list]] = {}
     for path, p in tree_leaves_with_path(params):
         if _is_bn_stat(path):
             continue
-        wd = weight_decay
-        if not decay_bn_and_bias and _is_no_decay(path):
-            wd = 0.0
-        m = m_leaves[path]
-        d = g_leaves[path].to(p.dtype)
+        wd = 0.0 if not decay_bn_and_bias and _is_no_decay(path) else weight_decay
+        ps, ds, ms = groups.setdefault(wd, ([], [], []))
+        ps.append(p)
+        ds.append(g_leaves[path].to(p.dtype))
+        ms.append(m_leaves[path])
+    for wd, (ps, ds, ms) in groups.items():
         if wd:
-            d = d + wd * p
-        m.mul_(momentum).add_(d)
-        p.sub_(lr * m)
+            ds = torch._foreach_add(ds, torch._foreach_mul(ps, wd))  # d = g + wd * p
+        torch._foreach_mul_(ms, momentum)
+        torch._foreach_add_(ms, ds)
+        torch._foreach_sub_(ps, torch._foreach_mul(ms, lr))
     return params, momentum_buf
 
 

@@ -36,6 +36,7 @@ from ..models.spec import NetSpec
 from ..ops.bn_act import bn_act
 from ..ops.bn_sums import bn_sums
 from ..ops.region_loss import region_loss, region_loss_v2
+from ..ops.yolo_loss import yolo_loss
 from ..utils.profiling import span, step_span
 from .optim import sgd_update, tree_leaves_with_path, tree_map, tree_map_with_path
 
@@ -255,14 +256,17 @@ class MetaTrainer(_GroupTrainer):
 
 
 class PlainTrainer(_GroupTrainer):
-    """Baseline YOLOv2 training step (reference train.py:126-225).
+    """Baseline YOLOv2 training step (reference train.py:126-225), and
+    YOLOv3's: the loss is the spec's, `ops/yolo_loss.py` for a net with
+    [yolo] heads, the region loss otherwise.
 
     Step inputs (R = replica groups, b = per-group batch), numpy arrays or
     tensors on any device: x (R, b, H, W, 3), target (R, b, 50, 5), keep
     (R, b); seen and lr as for MetaTrainer. Weight decay exempts BN affine
     and biases (train.py:132-138). Every training BN goes through the
     `bn_sums` and `bn_act` kernels, one forward and one backward launch of
-    each a BN layer and group."""
+    each a BN layer and group. Span: `train.loss` around the loss (with
+    `heads`, `predictions` and `truth_rows`, counts known on the host)."""
 
     _KEYS = ("x", "target", "keep")
     _DECAY_BN_AND_BIAS = False
@@ -297,10 +301,19 @@ class PlainTrainer(_GroupTrainer):
     def _episode_loss(self, params, x, target, keep, seen):
         (x,) = _decode_images((x,), self.image_dtype)
         y, aux = apply_network(self.spec, params, x, train=True, s2d_stem=self.s2d)
-        loss, metrics = region_loss(
-            y, target, keep, seen, self.region, zero_tcls=self.zero_tcls,
-            warmup_seen=self.warmup_seen,
-        )
+        yolo = self.spec.yolo_heads
+        heads = y if yolo else (y,)
+        per_prediction = 5 + (yolo[0] if yolo else self.region).num_classes
+        with span("train.loss", heads=len(heads),
+                  predictions=sum(h.numel() for h in heads) // per_prediction,
+                  truth_rows=target.shape[0] * target.shape[1]):
+            if yolo:
+                loss, metrics = yolo_loss(heads, target, keep, yolo, (x.shape[2], x.shape[1]))
+            else:
+                loss, metrics = region_loss(
+                    y, target, keep, seen, self.region, zero_tcls=self.zero_tcls,
+                    warmup_seen=self.warmup_seen,
+                )
         return loss, aux["bn_updates"], metrics
 
     _apply_bn = staticmethod(apply_bn_updates)

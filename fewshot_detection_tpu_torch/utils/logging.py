@@ -18,16 +18,23 @@ def log(message: str) -> None:
 
 
 def format_loss_line(seen: int, metrics: dict) -> str:
+    """The step's loss line. The YOLOv3 loss's `positives` (one count a
+    head) and `ignored` come in the same transfer and end the line."""
     # fetch the whole metrics dict in ONE device transfer: a float() per
     # scalar would synchronise with the device ten times a step (the
     # `train.sync` span)
+    extra = [k for k in ("positives", "ignored") if k in metrics]
     with span("train.sync"):
-        vals = torch.stack([torch.as_tensor(metrics[k]).to(torch.float64)
-                            for k in _KEYS]).tolist()
+        vals = torch.cat([torch.as_tensor(metrics[k]).to(torch.float64).reshape(-1)
+                          for k in _KEYS + tuple(extra)]).tolist()
     g = dict(zip(_KEYS, vals))
-    return (
+    line = (
         f"{seen}: nGT {int(g['nGT'])}, recall {int(g['nCorrect'])}, "
         f"proposals {int(g['nProposals'])}, loss: x {g['loss_x']:f}, "
         f"y {g['loss_y']:f}, w {g['loss_w']:f}, h {g['loss_h']:f}, "
         f"conf {g['loss_conf']:f}, cls {g['loss_cls']:f}, total {g['loss']:f}"
     )
+    if extra:
+        *pos, ign = (int(v) for v in vals[len(_KEYS):])
+        line += f", positives {'/'.join(map(str, pos))}, ignored {ign}"
+    return line

@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fewshot_detection_tpu.train import optim as jo
 from fewshot_detection_tpu_torch.train import optim as to
@@ -59,6 +60,32 @@ def test_sgd_update_matches_jax_over_three_steps(decay_bn_and_bias, clip_norm):
     np.testing.assert_array_equal(bn["mean"].numpy(), params["net"][2]["bn"]["mean"])
     np.testing.assert_array_equal(bn["var"].numpy(), params["net"][2]["bn"]["var"])
     assert float(tm["net"][2]["bn"]["mean"].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("decay_bn_and_bias", [True, False])
+def test_sgd_update_gives_the_bits_of_a_loop_over_the_leaves(decay_bn_and_bias):
+    """The update runs as lists (`torch._foreach_*`); each leaf takes the
+    operations a loop over the leaves takes, so the bits are the loop's."""
+    rng = np.random.RandomState(1)
+    params, grads = _tree(rng), _tree(rng)
+    tp, tg = _tt(params), _tt(grads)
+    tm = to.init_momentum(tp)
+    lp, lm = _tt(params), to.init_momentum(_tt(params))
+    g = dict(to.tree_leaves_with_path(tg))
+    m = dict(to.tree_leaves_with_path(lm))
+    for lr in (0.01, 0.003, 0.001):
+        to.sgd_update(tp, tg, tm, lr, momentum=0.9, weight_decay=5e-4,
+                      decay_bn_and_bias=decay_bn_and_bias)
+        for path, p in to.tree_leaves_with_path(lp):
+            if to._is_bn_stat(path):
+                continue
+            wd = 0.0 if not decay_bn_and_bias and to._is_no_decay(path) else 5e-4
+            d = g[path] + wd * p if wd else g[path]
+            m[path].mul_(0.9).add_(d)
+            p.sub_(lr * m[path])
+    for got, want in ((tp, lp), (tm, lm)):
+        gl, wl = dict(to.tree_leaves_with_path(got)), dict(to.tree_leaves_with_path(want))
+        assert gl.keys() == wl.keys() and all(torch.equal(gl[k], wl[k]) for k in gl)
 
 
 def test_clip_by_global_norm_matches_jax():

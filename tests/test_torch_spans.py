@@ -3,7 +3,8 @@ train step and the loss line open: off it records nothing and hands out
 one shared no-op; on, spans nest with their parents, a step identifier and
 their self time; a CPU MetaTrainer and PlainTrainer step (R = 2) give
 `train.step` over `train.to_device`, one `train.forward` a group,
-`train.backward` and `train.update`, in that order; `format_loss_line`
+`train.backward` and `train.update`, in that order (the plain trainer's
+`train.loss` inside each forward); `format_loss_line`
 gives `train.sync`; the spans share the profiler's clock; `trace()` writes
 them into its file, and `trace_summary` gives the device's idle time by
 innermost span."""
@@ -170,6 +171,14 @@ def test_a_train_step_records_its_phases_in_order(kind, tmp_path):
         tp, mom, metrics = trainer.step(tp, mom, batch, seen=64, lr=1e-3)
         line = format_loss_line(64, metrics)
     assert line.startswith("64: nGT ")
+    loss = [s for s in spans if s.name == "train.loss"]
+    if kind == "plain":  # the plain trainer's loss, inside each group's forward
+        assert [spans[s.parent].name for s in loss] == ["train.forward"] * 2
+        assert [s.counts for s in loss] == [
+            {"heads": 1, "predictions": (SIZE // 2) ** 2 * 5, "truth_rows": 50}] * 2
+    else:
+        assert loss == []
+    spans = [s for s in spans if s.name != "train.loss"]
     names = [s.name for s in spans]
     assert names == ["train.step", "train.to_device", "train.forward", "train.forward",
                      "train.backward", "train.update", "train.sync"]
@@ -430,8 +439,8 @@ def test_a_traced_card_step_puts_its_idle_down_to_its_spans(card, tmp_path):
     s = ts.summarize(events)
     print(ts.format_summary(s))
     idle = s["idle_by_span"]
-    assert set(idle) <= {"train.step", "train.to_device", "train.forward", "train.backward",
-                         "train.update", "train.sync", ts.NO_SPAN}
+    assert set(idle) <= {"train.step", "train.to_device", "train.forward", "train.loss",
+                         "train.backward", "train.update", "train.sync", ts.NO_SPAN}
     mine = [e for e in events if e.get("cat") == prof.SPAN_CATEGORY]
     steps = [e for e in mine if e["name"] == "train.step"]
     # one launch a BN layer each way, in each of the R = 2 replica groups

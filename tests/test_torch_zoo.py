@@ -28,13 +28,13 @@ from fewshot_detection_tpu_torch.models.darknet import apply_network, init_param
 from fewshot_detection_tpu_torch.ops.focal_loss import focal_loss
 
 from test_caffe import PROTO, PROTO_BN, _layer_new, _layer_v1, _make_blobs
-from torch_port_util import t, to_jnp_tree
+from torch_port_util import jax_spec_fields, t, to_jnp_tree
 
 FWD_TOL = 1e-5
 
 
 def _same_spec(got, want):
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert jax_spec_fields(got) == dataclasses.asdict(want)
 
 
 def _same_forward(spec, jspec, params, x):

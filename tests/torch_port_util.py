@@ -49,6 +49,19 @@ def t(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
+def jax_spec_fields(spec):
+    """`dataclasses.asdict` of a port `NetSpec` with the fields the JAX
+    package's `LayerSpec` has: the port's `yolo` field (YOLOv3's [yolo]
+    heads, which the JAX package does not parse) is dropped, and must be
+    None on every layer a JAX spec can hold."""
+    import dataclasses
+
+    out = dataclasses.asdict(spec)
+    for layer in out["layers"]:
+        assert layer.pop("yolo") is None
+    return out
+
+
 def in_env(root, env, fn):
     """fn() run from directory `root` with the variables of `env` set (a
     value of None unsets one); both restored afterwards."""
