@@ -39,6 +39,7 @@ from ..ops.region_loss import region_loss, region_loss_v2
 from ..ops.yolo_loss import yolo_loss
 from ..utils.profiling import span, step_span
 from .optim import sgd_update, tree_leaves_with_path, tree_map, tree_map_with_path
+from .staging import to_device
 
 
 def _decode_images(arrays, dtype):
@@ -105,19 +106,20 @@ class _GroupTrainer:
         # compute dtype that uint8-shipped inputs decode to (FSD_INPUT_U8)
         self.image_dtype = image_dtype
 
-    def _to_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(a).to(self.device, non_blocking=True)
-
     def loss_and_grads(self, params, batch: dict, seen: int):
         """Forward and backward of one step, nothing updated: (summed loss,
         gradient tree of params' shape, per-group bn_updates, summed
         metrics). A leaf the loss does not reach, and the BN running
         statistics, get zero gradients. Spans: `train.to_device` (with the
-        batch's `bytes`), `train.forward` a group (with its `group`),
+        batch's `bytes`, and of them the `staged_bytes` that went through
+        the pinned ring in its `chunks`, and its `slot_waits`;
+        `train/staging.py`), `train.forward` a group (with its `group`),
         `train.backward`."""
         with span("train.to_device") as sp:
-            tensors = [self._to_device(batch[k]) for k in self._KEYS]
+            tensors, counts = to_device([batch[k] for k in self._KEYS], self.device)
             sp.add("bytes", sum(t.nbytes for t in tensors))
+            for k, v in counts.items():
+                sp.add(k, v)
         paths, leaves = zip(*(
             (p, t) for p, t in tree_leaves_with_path(params) if t.requires_grad
         ))
