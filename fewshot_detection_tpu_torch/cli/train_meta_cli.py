@@ -37,7 +37,6 @@ from ..data import MetaDataset, build_dataset
 from ..data.datasets import DetectionDataset
 from ..data.loader import prefetch
 from ..data.mploader import MPLoader, episode_stream
-from ..eval.detector import resolve_device
 from ..eval.valid import set_float32_precision
 from ..models import weights_io
 from ..models.convert import from_jax_params, require_grads, to_jax_params
@@ -53,6 +52,7 @@ from ..train.checkpoint import (
     wait_for_saves,
 )
 from ..utils import format_loss_line, log
+from ..utils.card import resolve_device
 from ..utils.profiling import StepTimer, trace
 from .common import ensure_backup_dir, replica_layout, resolve_configs
 

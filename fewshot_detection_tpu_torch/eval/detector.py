@@ -20,18 +20,7 @@ from ..models.quant import (
 )
 from ..models.spec import build_spec
 from ..models.weights_io import WeightsHeader, load_weights, load_weights_bf16_gz
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. `"cuda"` without a card raises:
-    nothing moves to the CPU unless the caller asked for `"cpu"`."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was asked for but no CUDA device is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return dev
+from ..utils.card import resolve_device
 
 
 def _load_into(weightfile: str | None, specs, params):

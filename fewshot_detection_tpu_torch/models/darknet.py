@@ -3,8 +3,9 @@
 `init_params` / `apply_network` are the init/apply pair for a compiled
 `NetSpec`: plain YOLOv2 backbones, YOLOv3 (residual shortcuts, upsampling,
 two-source routes and three [yolo] heads; cfg/yolov3.cfg) and the
-reweighting learnet (cfg/reweighting_net.cfg). The meta detection path
-(dynamic convs, class-broadcast routes) lives in models/meta.py.
+reweighting learnet (cfg/reweighting_net.cfg). `Walk` runs every static
+layer kind for every network; the meta detection path (models/meta.py)
+subclasses it for the dynamic convs and the class-broadcast routes.
 
 Activations are NHWC at every boundary, as in the JAX package. Parameters
 are the tensor tree of `models.convert` (conv weights OIHW). The reference's
@@ -53,23 +54,6 @@ def conv2d(
         x.permute(0, 3, 1, 2), w.to(x.dtype), None, stride, pad, 1, groups
     )
     return y.permute(0, 2, 3, 1)
-
-
-def apply_conv_layer(
-    layer: LayerSpec,
-    p: dict[str, Any],
-    x: torch.Tensor,
-    train: bool = False,
-) -> tuple[torch.Tensor, dict | None]:
-    """conv [+ BN] [+ activation]; returns (y, new_bn_stats|None)."""
-    y = conv2d(x, p["w"], layer.stride, layer.pad, layer.groups)
-    if layer.batch_normalize and train:
-        return bn_train_activate(y, p["bn"], layer.activation)
-    if layer.batch_normalize:
-        y = batchnorm_apply(y, p["bn"])
-    elif "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return _activate(y, layer.activation), None
 
 
 def _bn_init(c: int) -> dict:
@@ -150,12 +134,121 @@ def can_fuse_s2d_stem(spec: NetSpec) -> bool:
     return ok and not any(s in (0, 1) for layer in spec.layers[2:] for s in layer.sources)
 
 
-def run_s2d_stem(spec: NetSpec, params: Params, x: torch.Tensor, train: bool):
-    """Layers 0-1 of an eligible network as the space-to-depth stem; returns
-    (output of layer 1, new BN stats of layer 0 or None)."""
-    p = params[0]
-    return stem_s2d_conv_pool(x, p["w"], p.get("bn"), spec.layers[0].activation, p.get("b"),
-                              train)
+class Walk:
+    """One pass over a network's layers, and what it has gathered so far:
+    every layer's output by index (`outputs`), the new BN running
+    statistics when training (`bn_updates`), the tensors emitted by [split]
+    layers (`splits`) and the [yolo] heads' inputs (`heads`), in order.
+
+    `layer` runs every static kind. A dynamic conv goes to `dynamic_conv`
+    and the two sources of a route are joined by `join`: models/meta.py's
+    detection walk overrides these two, and the static network's walk
+    refuses a dynamic conv and concatenates the sources."""
+
+    def __init__(self, spec: NetSpec, params: Params, *, train: bool = False,
+                 observe=None, act_scales=None):
+        self.spec = spec
+        self.params = params
+        self.train = train
+        self.observe = observe
+        self.act_scales = act_scales
+        self.outputs: dict[int, Any] = {}
+        self.bn_updates: dict[int, dict] = {}
+        self.splits: list[torch.Tensor] = []
+        self.heads: list[torch.Tensor] = []
+
+    def run(self, x, start: int = 0, stop: int | None = None, s2d_stem: bool = False):
+        """Layers [start, stop) from input x; returns the last output. A
+        layer whose output an earlier layer already gave (meta's fused head)
+        is not run again."""
+        end = stop if stop is not None else len(self.spec.layers)
+        if s2d_stem and start == 0 and end >= 2 and can_fuse_s2d_stem(self.spec):
+            p = self.params[0]
+            x, stats = stem_s2d_conv_pool(x, p["w"], p.get("bn"), self.spec.layers[0].activation,
+                                          p.get("b"), self.train)
+            if stats is not None:
+                self.bn_updates[0] = stats
+            self.outputs[1] = x
+            start = 2
+        for layer in self.spec.layers[start:end]:
+            if layer.index not in self.outputs:
+                x = self.layer(layer, x)
+        return x
+
+    def layer(self, layer: LayerSpec, x):
+        """Run one layer on x (the previous layer's output) and record its
+        output."""
+        kind = layer.kind
+        if kind == "conv":
+            if layer.dynamic:
+                x = self.dynamic_conv(layer, x)
+            else:
+                p = self.params[layer.index]
+                if self.observe is not None:
+                    self.observe(layer.index, x)
+                if p is not None and "wq" in p:
+                    from .quant import conv_int8  # lazy: quant imports darknet
+
+                    x = conv_int8(layer, p, x, self.act_scales[layer.index])
+                else:
+                    y = conv2d(x, p["w"], layer.stride, layer.pad, layer.groups)
+                    x = self.epilogue(layer, p, y)
+        elif kind == "maxpool":
+            x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
+        elif kind == "reorg":
+            x = reorg(x, layer.stride)
+        elif kind == "route":
+            if len(layer.sources) == 1:
+                x = self.outputs[layer.sources[0]]
+            else:
+                x = self.join(layer, *(self.outputs[s] for s in layer.sources))
+        elif kind == "shortcut":
+            x = self.outputs[layer.sources[0]] + self.outputs[layer.sources[1]]
+            x = _activate(x, layer.activation)
+        elif kind == "globalmax":
+            x = global_maxpool(x)
+        elif kind == "globalavg" or kind == "avgpool":
+            x = global_avgpool(x)
+        elif kind == "softmax":
+            x = torch.softmax(x, dim=-1)
+        elif kind == "connected":
+            p = self.params[layer.index]
+            x = x.reshape(x.shape[0], -1) @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+            x = _activate(x, layer.activation)
+        elif kind == "split":
+            xs = torch.split(x, list(layer.splits), dim=-1)
+            self.splits.append(xs[0])
+            x = xs[-1]
+        elif kind == "upsample":
+            x = upsample_nearest(x, layer.stride)
+        elif kind == "yolo":
+            self.heads.append(x)  # loss metadata; the head is the preceding conv
+        elif kind in ("region", "cost"):
+            pass  # loss metadata only; output is the preceding conv
+        else:
+            raise ValueError(f"unhandled layer kind {kind!r}")
+        self.outputs[layer.index] = x
+        return x
+
+    def epilogue(self, layer: LayerSpec, p: dict | None, y: torch.Tensor) -> torch.Tensor:
+        """A conv's BN (training statistics when training) or bias, then its
+        activation."""
+        if layer.batch_normalize and self.train:
+            y, self.bn_updates[layer.index] = bn_train_activate(y, p["bn"], layer.activation)
+            return y
+        if layer.batch_normalize:
+            y = batchnorm_apply(y, p["bn"])
+        elif p is not None and "b" in p:
+            y = y + p["b"].to(y.dtype)
+        return _activate(y, layer.activation)
+
+    def dynamic_conv(self, layer: LayerSpec, x):
+        """A conv whose filters are class codes: only the meta walk has them."""
+        raise ValueError("dynamic conv in a static network — use models.meta")
+
+    def join(self, layer: LayerSpec, a: torch.Tensor, b: torch.Tensor):
+        """The output of a two-source route: the sources side by side."""
+        return torch.cat([a, b], dim=-1)
 
 
 def apply_network(
@@ -185,74 +278,10 @@ def apply_network(
     (int8 calibration hook); conv params carrying ``wq`` run the int8
     product with ``act_scales[layer_index]`` (models/quant.py).
     """
-    outputs: dict[int, torch.Tensor] = {}
-    bn_updates: dict[int, dict] = {}
-    splits: list[torch.Tensor] = []
-    heads: list[torch.Tensor] = []
-    end = stop if stop is not None else len(spec.layers)
-    layers = spec.layers[start:end]
-
-    if s2d_stem and start == 0 and end >= 2 and can_fuse_s2d_stem(spec):
-        x, stats = run_s2d_stem(spec, params, x, train)
-        if stats is not None:
-            bn_updates[0] = stats
-        outputs[1] = x
-        layers = layers[2:]
-
-    for layer in layers:
-        kind = layer.kind
-        if kind == "conv":
-            if layer.dynamic:
-                raise ValueError("dynamic conv in a static network — use models.meta")
-            p = params[layer.index]
-            if observe is not None:
-                observe(layer.index, x)
-            if p is not None and "wq" in p:
-                from .quant import conv_int8  # lazy: quant imports darknet
-
-                x = conv_int8(layer, p, x, act_scales[layer.index])
-            else:
-                x, stats = apply_conv_layer(layer, p, x, train)
-                if stats is not None:
-                    bn_updates[layer.index] = stats
-        elif kind == "maxpool":
-            x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
-        elif kind == "reorg":
-            x = reorg(x, layer.stride)
-        elif kind == "route":
-            if len(layer.sources) == 1:
-                x = outputs[layer.sources[0]]
-            else:
-                a, b = (outputs[s] for s in layer.sources)
-                x = torch.cat([a, b], dim=-1)
-        elif kind == "shortcut":
-            x = outputs[layer.sources[0]] + outputs[layer.sources[1]]
-            x = _activate(x, layer.activation)
-        elif kind == "globalmax":
-            x = global_maxpool(x)
-        elif kind == "globalavg" or kind == "avgpool":
-            x = global_avgpool(x)
-        elif kind == "softmax":
-            x = torch.softmax(x, dim=-1)
-        elif kind == "connected":
-            p = params[layer.index]
-            x = x.reshape(x.shape[0], -1) @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
-            x = _activate(x, layer.activation)
-        elif kind == "split":
-            xs = torch.split(x, list(layer.splits), dim=-1)
-            splits.append(xs[0])
-            x = xs[-1]
-        elif kind == "upsample":
-            x = upsample_nearest(x, layer.stride)
-        elif kind == "yolo":
-            heads.append(x)  # loss metadata; the head is the preceding conv
-        elif kind in ("region", "cost"):
-            pass  # loss metadata only; output is the preceding conv
-        else:
-            raise ValueError(f"unhandled layer kind {kind!r}")
-        outputs[layer.index] = x
-
-    return (tuple(heads) if heads else x), {"bn_updates": bn_updates, "splits": splits}
+    walk = Walk(spec, params, train=train, observe=observe, act_scales=act_scales)
+    x = walk.run(x, start, stop, s2d_stem)
+    return (tuple(walk.heads) if walk.heads else x), {"bn_updates": walk.bn_updates,
+                                                      "splits": walk.splits}
 
 
 def fold_batchnorm(spec: NetSpec, params: Params) -> Params:

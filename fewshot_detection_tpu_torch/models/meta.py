@@ -6,7 +6,8 @@ Reference behavior being reproduced (file:line in the reference):
     (darknet_meta.py:107-128)
   * detect_forward — backbone walk where the dynamic conv consumes the class
     codes (darknet_meta.py:130-195) and routes broadcast across the class
-    axis (maybe_repeat, darknet_meta.py:16-35)
+    axis (maybe_repeat, darknet_meta.py:16-35); every static layer runs
+    through models/darknet.py's `Walk`, which `_DetectWalk` extends
   * dynamic conv semantics — grouped conv whose filters ARE the class codes
     (dynamic_conv.py:110-168); with the shipped 1024->1024 1x1 depthwise
     config this is per-class channel reweighting
@@ -25,26 +26,9 @@ import numpy as np
 import torch
 
 from ..ops.int8_mm import int8_matmul
-from ..ops.layers import (
-    _activate,
-    batchnorm_apply,
-    bn_train_activate,
-    global_avgpool,
-    global_maxpool,
-    maxpool,
-    maxpool_stride1,
-    reorg,
-)
-from .darknet import (
-    Params,
-    apply_conv_layer,
-    apply_network,
-    can_fuse_s2d_stem,
-    conv2d,
-    init_params,
-    run_s2d_stem,
-)
-from .quant import QMAX, act_scale_inverse, conv_int8, device_scalar, quantize_act
+from ..ops.layers import _activate
+from .darknet import Params, Walk, apply_network, conv2d, init_params
+from .quant import QMAX, act_scale_inverse, device_scalar, quantize_act
 from .spec import LayerSpec, NetSpec
 
 
@@ -186,22 +170,11 @@ def _can_fuse(layer: LayerSpec, nxt: LayerSpec | None, dw: torch.Tensor, x: torc
     """Fusable pattern: first dconv, 1x1 depthwise (group_size 1), linear
     activation, no BN, immediately followed by a static 1x1 conv (the
     30-ch head)."""
-    return (
-        nxt is not None
-        and layer.size == 1
-        and layer.partial is None
-        and not layer.batch_normalize
-        and layer.activation == "linear"
-        and dw.shape[1] == 1
-        and dw.shape[2] == 1
-        and dw.shape[3] == x.shape[-1]
-        and nxt.kind == "conv"
-        and not nxt.dynamic
-        and nxt.size == 1
-        and nxt.groups == 1
-        and not nxt.batch_normalize
-        and nxt.stride == 1
-    )
+    return (nxt is not None and nxt.kind == "conv" and not nxt.dynamic
+            and layer.size == nxt.size == 1 and layer.partial is None
+            and not layer.batch_normalize and not nxt.batch_normalize
+            and layer.activation == "linear" and nxt.groups == 1 and nxt.stride == 1
+            and tuple(dw.shape[1:]) == (1, 1, x.shape[-1]))
 
 
 def fused_reweight_head(
@@ -287,6 +260,57 @@ def fused_reweight_head_int8(
 # ---------------------------------------------------------------------------
 
 
+class _DetectWalk(Walk):
+    """`models.darknet.Walk` with the meta semantics of `detect_forward`:
+    the dynamic convs, the fused head, and the two-source routes."""
+
+    def __init__(self, spec: NetSpec, params: Params, dynamic_weights, *, fuse: bool, **kw):
+        super().__init__(spec, params, **kw)
+        self.dynamic_weights = dynamic_weights
+        self.fuse = fuse
+        self.n_dynamic = 0  # dynamic convs run so far
+        self.dw_cursor = 0  # class codes taken from dynamic_weights so far
+
+    def dynamic_conv(self, layer: LayerSpec, x):
+        if isinstance(x, tuple):
+            # a tuple route's pair (concat=0): the second element IS the dynamic
+            # weight, supplied in-graph instead of from meta_forward's list
+            x, dw_in = x
+        else:
+            dw_in = self.dynamic_weights[self.dw_cursor]
+            self.dw_cursor += 1
+        p = self.params[layer.index]
+        dw = _full_dynamic_weight(layer, p, dw_in, dw_in.shape[0])
+        is_first = self.n_dynamic == 0
+        self.n_dynamic += 1
+        layers = self.spec.layers
+        nxt = layers[layer.index + 1] if layer.index + 1 < len(layers) else None
+        if self.fuse and is_first and _can_fuse(layer, nxt, dw, x):
+            if self.observe is not None:
+                self.observe(layer.index, x)
+            head = self.params[nxt.index]
+            args = (x, dw, head["w"], head.get("b"), nxt.activation)
+            if self.act_scales is not None and layer.index in self.act_scales:
+                x = fused_reweight_head_int8(*args, self.act_scales[layer.index])
+            else:
+                x = fused_reweight_head(*args)
+            self.outputs[nxt.index] = x  # the head is done: the walk skips it
+            return x
+        return self.epilogue(layer, p, dynamic_conv_general(x, dw, layer, is_first=is_first))
+
+    def join(self, layer: LayerSpec, a: torch.Tensor, b: torch.Tensor):
+        if not layer.concat:
+            # tuple passthrough, no broadcast (darknet_meta.py:166-168);
+            # consumed by a downstream dynamic conv as (input, dynamic_weight)
+            return (a, b)
+        # class-broadcast the smaller batch (maybe_repeat semantics)
+        if a.shape[0] < b.shape[0]:
+            a = class_broadcast(a, b.shape[0] // a.shape[0])
+        elif a.shape[0] > b.shape[0]:
+            b = class_broadcast(b, a.shape[0] // b.shape[0])
+        return super().join(layer, a, b)
+
+
 def detect_forward(
     spec: MetaSpec,
     params: dict[str, Params],
@@ -314,123 +338,14 @@ def detect_forward(
     Tuple routes (``concat=0``, darknet_meta.py:166-168) emit ``(x1, x2)``
     unchanged; a downstream dynamic conv consumes the pair as
     (input, dynamic_weight) — the in-graph counterpart of meta_forward's
-    collected weight list. ``s2d`` runs an eligible backbone stem in
-    space-to-depth form (`can_fuse_s2d_stem`).
+    collected weight list. ``fuse=False`` runs the first dynamic conv and
+    the head apart (the general path). ``s2d`` runs an eligible backbone
+    stem in space-to-depth form (`can_fuse_s2d_stem`).
     """
-    dparams = params["darknet"]
-    layers = spec.darknet.layers
-    outputs: dict = {}
-    bn_updates: dict[int, dict] = {}
-
-    start_li = 0
-    if s2d and can_fuse_s2d_stem(spec.darknet):
-        x, stats = run_s2d_stem(spec.darknet, dparams, x, train)
-        if stats is not None:
-            bn_updates[0] = stats
-        outputs[1] = x
-        start_li = 2
-
-    dyn_cnt = 0
-    dw_cursor = 0
-    skip_next = False
-    for li, layer in enumerate(layers):
-        if li < start_li:
-            continue
-        if skip_next:
-            skip_next = False
-            outputs[layer.index] = x
-            continue
-        kind = layer.kind
-        if kind == "conv":
-            if layer.dynamic:
-                if isinstance(x, tuple):
-                    # tuple route output (concat=0): the second element IS
-                    # the dynamic weight, supplied in-graph instead of from
-                    # meta_forward's list
-                    x, dw_in = x
-                else:
-                    dw_in = dynamic_weights[dw_cursor]
-                    dw_cursor += 1
-                dw = _full_dynamic_weight(
-                    layer, dparams[layer.index], dw_in, dw_in.shape[0]
-                )
-                is_first = dyn_cnt == 0
-                nxt = layers[li + 1] if li + 1 < len(layers) else None
-                if fuse and is_first and _can_fuse(layer, nxt, dw, x):
-                    if observe is not None:
-                        observe(layer.index, x)
-                    head_p = dparams[nxt.index]
-                    if act_scales is not None and layer.index in act_scales:
-                        x = fused_reweight_head_int8(
-                            x, dw, head_p["w"], head_p.get("b"), nxt.activation,
-                            act_scales[layer.index],
-                        )
-                    else:
-                        x = fused_reweight_head(
-                            x, dw, head_p["w"], head_p.get("b"), nxt.activation
-                        )
-                    skip_next = True
-                else:
-                    x = dynamic_conv_general(x, dw, layer, is_first=is_first)
-                    if layer.batch_normalize and train:
-                        x, stats = bn_train_activate(
-                            x, dparams[layer.index]["bn"], layer.activation
-                        )
-                        bn_updates[layer.index] = stats
-                    else:
-                        if layer.batch_normalize:
-                            x = batchnorm_apply(x, dparams[layer.index]["bn"])
-                        x = _activate(x, layer.activation)
-                dyn_cnt += 1
-            else:
-                p = dparams[layer.index]
-                if observe is not None:
-                    observe(layer.index, x)
-                if not train and p is not None and "wq" in p:
-                    x = conv_int8(layer, p, x, act_scales[layer.index])
-                else:
-                    x, stats = apply_conv_layer(layer, p, x, train)
-                    if stats is not None:
-                        bn_updates[layer.index] = stats
-        elif kind == "maxpool":
-            x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
-        elif kind == "reorg":
-            x = reorg(x, layer.stride)
-        elif kind == "route":
-            if len(layer.sources) == 1:
-                x = outputs[layer.sources[0]]
-            else:
-                a, b = (outputs[s] for s in layer.sources)
-                if not layer.concat:
-                    # tuple passthrough, no broadcast (darknet_meta.py:166-168);
-                    # consumed by a downstream dynamic conv as
-                    # (input, dynamic_weight)
-                    x = (a, b)
-                    outputs[layer.index] = x
-                    continue
-                # class-broadcast the smaller batch (maybe_repeat semantics)
-                if a.shape[0] != b.shape[0]:
-                    if a.shape[0] < b.shape[0]:
-                        a = class_broadcast(a, b.shape[0] // a.shape[0])
-                    else:
-                        b = class_broadcast(b, a.shape[0] // b.shape[0])
-                x = torch.cat([a, b], dim=-1)
-        elif kind == "shortcut":
-            x = outputs[layer.sources[0]] + outputs[layer.sources[1]]
-            x = _activate(x, layer.activation)
-        elif kind == "globalmax":
-            x = global_maxpool(x)
-        elif kind in ("globalavg", "avgpool"):
-            x = global_avgpool(x)
-        elif kind == "softmax":
-            x = torch.softmax(x, dim=-1)
-        elif kind in ("region", "cost"):
-            pass
-        else:
-            raise ValueError(f"unhandled layer kind {kind!r} in detect_forward")
-        outputs[layer.index] = x
-
-    return x, {"bn_updates": bn_updates}
+    walk = _DetectWalk(spec.darknet, params["darknet"], dynamic_weights, fuse=fuse,
+                       train=train, observe=observe, act_scales=act_scales)
+    x = walk.run(x, s2d_stem=s2d)
+    return x, {"bn_updates": walk.bn_updates}
 
 
 def forward(
@@ -442,16 +357,14 @@ def forward(
     *,
     metain_type: int = 2,
     train: bool = False,
-    fuse: bool = True,
     s2d: bool = False,
 ) -> tuple[torch.Tensor, dict]:
-    """Full episodic forward (darknet_meta.py:197-201)."""
+    """Full episodic forward (darknet_meta.py:197-201); the reweighting and
+    the head run fused wherever `_can_fuse` allows."""
     dynamic_weights, maux = meta_forward(
         spec, params, metax, mask, metain_type=metain_type, train=train, s2d=s2d
     )
-    y, daux = detect_forward(
-        spec, params, x, dynamic_weights, train=train, fuse=fuse, s2d=s2d
-    )
+    y, daux = detect_forward(spec, params, x, dynamic_weights, train=train, s2d=s2d)
     return y, {
         "bn_updates": {"darknet": daux["bn_updates"], **maux["bn_updates"]},
         "dynamic_weights": dynamic_weights,

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import torch
 
-from ..eval.detector import resolve_device
 from ..models import meta as meta_mod
 from ..models.darknet import apply_network
 from ..models.spec import NetSpec
@@ -37,6 +36,7 @@ from ..ops.bn_act import bn_act
 from ..ops.bn_sums import bn_sums
 from ..ops.region_loss import region_loss, region_loss_v2
 from ..ops.yolo_loss import yolo_loss
+from ..utils.card import resolve_device
 from ..utils.profiling import span, step_span
 from .optim import sgd_update, tree_leaves_with_path, tree_map, tree_map_with_path
 from .staging import to_device
@@ -202,7 +202,6 @@ class MetaTrainer(_GroupTrainer):
         momentum: float = 0.9,
         weight_decay: float = 0.0,
         metain_type: int = 2,
-        fuse: bool = True,
         remat: bool = False,
         s2d: bool = False,
         clip_norm: float = 0.0,
@@ -221,7 +220,6 @@ class MetaTrainer(_GroupTrainer):
         self.spec = spec
         self.region = spec.region
         self.metain_type = metain_type
-        self.fuse = fuse
         # the space-to-depth stem where a network's first layers allow it
         # (models/darknet.py:can_fuse_s2d_stem)
         self.s2d = s2d
@@ -231,7 +229,7 @@ class MetaTrainer(_GroupTrainer):
         n_cls = metax.shape[0]
         y, aux = meta_mod.forward(
             self.spec, params, x, metax, mask,
-            metain_type=self.metain_type, train=True, fuse=self.fuse, s2d=self.s2d,
+            metain_type=self.metain_type, train=True, s2d=self.s2d,
         )
         loss, metrics = region_loss_v2(
             y, target, keep, seen, self.region, n_cls, warmup_seen=self.warmup_seen

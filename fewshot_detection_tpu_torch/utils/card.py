@@ -1,4 +1,5 @@
-"""The card a measurement ran on, in nvidia-smi's words.
+"""The device an entry point runs on, and the card a measurement ran on, in
+nvidia-smi's words.
 
 Every number a bench script prints belongs beside the card's name and its
 power limit: a card set below its maximum power runs slower under load."""
@@ -8,6 +9,18 @@ from __future__ import annotations
 import subprocess
 
 import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. `"cuda"` without a card raises:
+    nothing moves to the CPU unless the caller asked for `"cpu"`."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was asked for but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 def nvidia_smi(query: str, index: int = 0) -> str:

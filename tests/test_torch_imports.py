@@ -307,3 +307,19 @@ def test_bench_scripts_default_to_cuda_and_raise_without_one(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
     assert os.listdir(tmp_path) == []
+
+
+def test_train_imports_nothing_from_eval():
+    """The train step sits below the sweep: nothing under train/ imports
+    from eval/ (the device check it needs lives in utils/card.py)."""
+    import ast
+
+    train = os.path.join(PKG, "train")
+    for name in sorted(os.listdir(train)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(train, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                assert "eval" not in (node.module or "").split("."), (name, node.module)

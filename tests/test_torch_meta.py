@@ -190,3 +190,111 @@ def test_class_broadcast_is_image_major():
     assert out[:, 0].tolist() == [0] * 4 + [1] * 4 + [2] * 4
     want = jm.class_broadcast(jnp.arange(3)[:, None] * jnp.ones((1, 2)), 4)
     np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+# A backbone with a residual shortcut, an upsample and a concatenating
+# route before its dynamic conv: static kinds that only the static walk
+# knew before the two walks were one.
+_NECK_DK = (
+    "[net]\nbatch=1\nheight=32\nwidth=32\nchannels=3\n"
+    "[convolutional]\nbatch_normalize=1\nfilters=8\nsize=3\nstride=1\npad=1\nactivation=leaky\n"
+    "[maxpool]\nsize=2\nstride=2\n"
+    "[convolutional]\nbatch_normalize=1\nfilters=8\nsize=3\nstride=2\npad=1\nactivation=leaky\n"
+    "[convolutional]\nbatch_normalize=1\nfilters=8\nsize=1\nstride=1\npad=1\nactivation=leaky\n"
+    "[shortcut]\nfrom=-2\nactivation=linear\n"
+    "[upsample]\nstride=2\n"
+    "[route]\nlayers=-1,1\n"
+    "[convolutional]\nbatch_normalize=1\nfilters=16\nsize=3\nstride=2\npad=1\nactivation=leaky\n"
+    "[convolutional]\ndynamic=1\nsize=1\nstride=1\npad=1\nfilters=16\nactivation=linear\n"
+    "[convolutional]\nsize=1\nstride=1\npad=1\nfilters=6\nactivation=linear\n"
+    "[region]\nanchors=1.0,1.0\nclasses=1\nnum=1\n"
+)
+_NECK_LN = (
+    "[learnet]\nfeat_layer=0\nchannels=4\nheight=32\nwidth=32\n"
+    "[convolutional]\nbatch_normalize=1\nfilters=16\nsize=3\nstride=1\npad=1\nactivation=leaky\n"
+    "[globalmax]\n"
+)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_detect_forward_runs_the_static_walk_before_the_dynamic_conv(train):
+    """The layers before the dynamic conv come out of `detect_forward` bit
+    for bit as `apply_network` gives them (the fused head's `observe` sees
+    the dynamic conv's input), with the same new BN statistics, and the
+    whole forward runs, fused and general alike."""
+    from fewshot_detection_tpu_torch.models import darknet as td
+
+    spec = tm.MetaSpec(build_spec(parse_cfg_text(_NECK_DK)), build_spec(parse_cfg_text(_NECK_LN)))
+    dyn = next(l.index for l in spec.darknet.layers if l.dynamic)
+    assert {"shortcut", "upsample", "route"} <= {l.kind for l in spec.darknet.layers[:dyn]}
+    params = tm.init_meta_params(spec, 12)
+    randomize_bn(params["darknet"], np.random.default_rng(13))
+    tp = {k: from_jax_params(getattr(spec, k), v, "cpu") for k, v in params.items()}
+    rng = np.random.default_rng(14)
+    x = t(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))
+    dw = t(rng.standard_normal((N_CLS, 1, 1, 16)).astype(np.float32))
+    seen = {}
+    with torch.no_grad():
+        fused, aux = tm.detect_forward(spec, tp, x, [dw], train=train,
+                                       observe=lambda i, v: seen.setdefault(i, v))
+        general, _ = tm.detect_forward(spec, tp, x, [dw], train=train, fuse=False)
+        prefix, paux = td.apply_network(spec.darknet, tp["darknet"], x, train=train, stop=dyn)
+    assert torch.equal(seen[dyn], prefix)
+    assert aux["bn_updates"].keys() == paux["bn_updates"].keys() == ({0, 2, 3, 7} if train else set())
+    for i, stats in paux["bn_updates"].items():
+        for k in stats:
+            assert torch.equal(aux["bn_updates"][i][k], stats[k]), (i, k)
+    assert tuple(fused.shape) == (2 * N_CLS, 8, 8, 6)
+    assert torch.isfinite(fused).all()
+    np.testing.assert_allclose(fused.numpy(), general.numpy(), **TOL)
+
+
+def _kind_tests(tree):
+    """(enclosing function, line) of every comparison or membership test
+    on a layer's `kind` in a parsed module."""
+    import ast
+
+    found = []
+
+    def visit(node, fn):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            fn = node.name
+        if isinstance(node, ast.Compare):
+            for side in (node.left, *node.comparators):
+                if (isinstance(side, ast.Attribute) and side.attr == "kind") or (
+                        isinstance(side, ast.Name) and side.id == "kind"):
+                    found.append((fn, node.lineno))
+                    break
+        for child in ast.iter_child_nodes(node):
+            visit(child, fn)
+
+    visit(tree, None)
+    return found
+
+
+@pytest.mark.parametrize("check", ["meta_branches_on_no_static_kind",
+                                   "darknet_imports_nothing_from_meta"])
+def test_one_layer_walk_in_the_source(check):
+    """models/darknet.py's `Walk.layer` is the one dispatch on layer kinds:
+    models/meta.py tests a kind only in `_can_fuse` (the head it fuses
+    must be a static conv), and models/darknet.py does not reach up into
+    models/meta.py."""
+    import ast
+    import os
+
+    from torch_port_util import REPO
+
+    models = os.path.join(REPO, "fewshot_detection_tpu_torch", "models")
+    if check == "meta_branches_on_no_static_kind":
+        with open(os.path.join(models, "meta.py")) as f:
+            src = f.read()
+        assert {fn for fn, _ in _kind_tests(ast.parse(src))} == {"_can_fuse"}
+        assert "unhandled layer kind" not in src
+    else:
+        with open(os.path.join(models, "darknet.py")) as f:
+            tree = ast.parse(f.read())
+        imported = [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        imported += [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        imported += [a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+                     for a in n.names if not n.module]
+        assert not [m for m in imported if m.split(".")[-1] == "meta"], imported
