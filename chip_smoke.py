@@ -9,8 +9,8 @@ the port's CUDA kernels from the sources in this checkout, and runs these
 phases, each printing JSON lines:
 
   device   the card as nvidia-smi names it, its power limit, torch/CUDA versions
-  build    nvcc on csrc/nms.cu, csrc/bn_sums.cu and csrc/bn_act.cu, side by
-           side, seconds taken
+  build    nvcc on csrc/nms.cu, csrc/bn_sums.cu, csrc/bn_act.cu and
+           csrc/maxpool.cu, side by side, seconds taken
   kernels  `nms_rows` (the CUDA kernel) against `nms_rows_reference` (plain
            PyTorch) on the card: keep masks must be bit-equal at the main
            path's shapes, on an adversarial set and on the edges of the
@@ -39,7 +39,14 @@ phases, each printing JSON lines:
            non-contiguous input copied and counted, one kernel a call each
            way; timed beside the plain versions and the byte bound at the
            bench step's first BN (66,453,504, 32) and the batch-64 cells'
-           13 x 13 layers (10,816, 1024)
+           13 x 13 layers (10,816, 1024);
+           `maxpool2x2` (2x2 stride-2 pools) forward and backward against
+           `F.max_pool2d` and the plain versions, float32, bfloat16 and
+           float16, on both paths: values and gradients bit-equal, one kernel
+           a call each way; timed beside the plain versions, the library's
+           pair (`F.max_pool2d` with its indices) and the byte bound at the
+           bench step's first pool (384, 416, 416, 32) and the learnet's odd
+           (15, 13, 13, 1024)
   serve    the ensemble-eval path at full width (cfg/darknet_dynamic.cfg +
            cfg/reweighting_net.cfg at 416x416, the tracked trained checkpoint,
            batch 16, top_k 256) on images made from the seed: class codes from
@@ -265,6 +272,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fewshot_detection_tpu_torch.cli import train_meta_cli
 from fewshot_detection_tpu_torch.cli.common import resolve_configs
@@ -301,6 +309,7 @@ from fewshot_detection_tpu_torch.native import NativeImagePipe
 from fewshot_detection_tpu_torch.native import build_library as build_native_library
 from fewshot_detection_tpu_torch.native.loader import library_path as native_library_path
 from fewshot_detection_tpu_torch.ops import _build, bn_act as act_mod, bn_sums as bn_mod, layers, nms_device
+from fewshot_detection_tpu_torch.ops import pool2x2 as pool_mod
 from fewshot_detection_tpu_torch.ops.bn_act import (
     bn_act,
     bn_act_backward_reference,
@@ -316,6 +325,11 @@ from fewshot_detection_tpu_torch.ops.bn_sums import (
 from fewshot_detection_tpu_torch.ops import int8_mm
 from fewshot_detection_tpu_torch.ops.boxes import get_region_boxes, get_region_boxes_v2, nms
 from fewshot_detection_tpu_torch.ops.int8_mm import int8_matmul, int8_matmul_reference
+from fewshot_detection_tpu_torch.ops.pool2x2 import (
+    maxpool2x2,
+    maxpool2x2_backward_reference,
+    maxpool2x2_reference,
+)
 from fewshot_detection_tpu_torch.ops.nms_device import nms_rows, nms_rows_reference
 from fewshot_detection_tpu_torch.parallel import shard_batch
 from fewshot_detection_tpu_torch.train import MetaTrainer, PlainTrainer, init_momentum
@@ -566,13 +580,14 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every source is started before any is waited on."""
     t0 = time.perf_counter()
-    names = ("nms", "bn_sums", "bn_act")
+    names = ("nms", "bn_sums", "bn_act", "maxpool")
     handles = [_build.start_build(n, verbose=True) for n in names]
     for h in handles:
         _build.finish_build(h)
     nms_device._kernel()
     bn_mod._kernels()
     act_mod._kernels()
+    pool_mod._kernels()
     emit("build", sources=[os.path.relpath(_build.source_path(n), REPO) for n in names],
          libraries=[os.path.relpath(_build.library_path(n), REPO) for n in names],
          flags=list(_build.NVCC_FLAGS), seconds=round(time.perf_counter() - t0, 3))
@@ -1057,6 +1072,127 @@ def phase_bn_act_kernels(seed: int) -> dict:
     return {"cases": cases, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# maxpool2x2: the pool kernels against F.max_pool2d and their plain versions
+# ---------------------------------------------------------------------------
+
+# timed: the bench step's first pool (bfloat16) and the learnet's last, whose
+# odd side drops a row and a column; then both paths in every type (C = 12 is
+# no multiple of 8, C = 3 of 4) and a base one element past 16 bytes
+POOL_TIMED = [(384, 416, 416, 32), (15, 13, 13, 1024)]
+POOL_SHAPES = [(64, 104, 104, 128), (15, 13, 13, 1024), (8, 27, 31, 64), (4, 52, 52, 12),
+               (3, 9, 7, 3)]
+
+
+def pool_bound_ms(shape, itemsize: int) -> float:
+    """Least bytes a way over the memory rate: the forward reads x and
+    writes y, the backward reads dy and writes dx (T + T/4 each, T the
+    input's bytes, floor sides)."""
+    b, h, w, c = shape
+    return (b * h * w * c + b * (h // 2) * (w // 2) * c) * itemsize / PEAK_BYTES_PER_S * 1e3
+
+
+def pool_library(x: torch.Tensor):
+    """`F.max_pool2d` of the channels-last view with its int64 indices: the
+    forward the port ran before, and a closure of its backward's one call."""
+    view = x.permute(0, 3, 1, 2)
+    y, idx = F.max_pool2d(view, 2, 2, return_indices=True)
+    return y, lambda dy: torch.ops.aten.max_pool2d_with_indices_backward(
+        dy, view, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+
+
+def compare_pool(x: torch.Tensor, dy: torch.Tensor) -> dict:
+    """Kernel against `F.max_pool2d` and the plain version on one input:
+    values and gradient bit for bit (NaN where NaN). Raises on a failure."""
+    shape, dt = tuple(x.shape), str(x.dtype).split(".")[-1]
+    xg = x.detach().requires_grad_(True)  # the same memory: a misaligned view stays so
+    y = maxpool2x2(xg)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    paths = [maxpool2x2.last_path, maxpool2x2.last_backward_path]
+    xl = x.detach().requires_grad_(True)
+    yl = F.max_pool2d(xl.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    (dxl,) = torch.autograd.grad(yl, xl, dy)
+    ref_y, code = maxpool2x2_reference(x)
+    ref_dx = maxpool2x2_backward_reference(dy, code, x.shape[1], x.shape[2])
+    bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+    for what, got, want in (("values", y, yl), ("gradient", dx, dxl), ("plain values", y, ref_y),
+                            ("plain gradient", dx, ref_dx)):
+        # NaN where NaN, the same bits elsewhere (+0 and -0 told apart)
+        nan, want = torch.isnan(got), want.contiguous()
+        same = torch.equal(nan, torch.isnan(want)) and torch.equal(
+            got.view(bits).masked_fill(nan, 0), want.view(bits).masked_fill(nan, 0))
+        check(same, f"maxpool2x2 {what} differ from F.max_pool2d's at {shape} {dt}")
+        del nan, want
+    return {"shape": list(shape), "dtype": dt, "paths": paths, "nans": int(torch.isnan(x).sum())}
+
+
+def time_pool(x: torch.Tensor, dy: torch.Tensor) -> dict:
+    """Kernels, plain versions and the library's pair, each way: `*_ms` per
+    call made from Python one after the other, `*_card_ms` on the card."""
+    _, code = pool_mod._launch_forward(x, True)
+    h, w = x.shape[1], x.shape[2]
+    _, lib_bwd = pool_library(x)
+    dyl = dy.permute(0, 3, 1, 2)
+    runs = {
+        "fwd": lambda: pool_mod._launch_forward(x, True),
+        "fwd_plain": lambda: maxpool2x2_reference(x),
+        "fwd_library": lambda: pool_library(x),
+        "bwd": lambda: pool_mod._launch_backward(dy, code, h, w),
+        "bwd_plain": lambda: maxpool2x2_backward_reference(dy, code, h, w),
+        "bwd_library": lambda: lib_bwd(dyl),
+    }
+    bound = pool_bound_ms(tuple(x.shape), x.element_size())
+    out = {"fwd_bound_ms": bound, "bwd_bound_ms": bound}
+    for name, fn in runs.items():
+        repeats = 5 if name.endswith("plain") else 20
+        out[f"{name}_ms"] = cuda_ms(fn, repeats)
+        out[f"{name}_card_ms"] = card_ms(fn, repeats)
+        torch.cuda.empty_cache()
+    for way in ("fwd", "bwd"):
+        out[f"{way}_share_of_bound"] = out[f"{way}_bound_ms"] / out[f"{way}_card_ms"]
+    return out
+
+
+def phase_pool_kernels(seed: int) -> dict:
+    """Returns the compared cases and the times at the timed shapes."""
+    cases, times, calls = [], {}, {}
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 400)
+    for shape in POOL_TIMED:
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        dy = torch.randn((b, h // 2, w // 2, c), generator=g, device=DEVICE).to(torch.bfloat16)
+        cases.append(compare_pool(x, dy))
+        times["x".join(map(str, shape))] = time_pool(x, dy)
+        del x, dy
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for i, shape in enumerate(POOL_SHAPES):
+            b, h, w, c = shape
+            x = torch.randn(shape, generator=g, device=DEVICE)
+            x[torch.rand(shape, generator=g, device=DEVICE) < 0.01] = float("nan")
+            x = torch.where(torch.rand(shape, generator=g, device=DEVICE) < 0.2, x.round(), x)
+            x, dy = x.to(dtype), torch.randn((b, h // 2, w // 2, c), generator=g,
+                                             device=DEVICE).to(dtype)
+            cases.append(compare_pool(x, dy))
+            if i == 0:  # one kernel a call, each way
+                _, code = pool_mod._launch_forward(x, True)
+                for way, fn in (("fwd", lambda: pool_mod._launch_forward(x, True)),
+                                ("bwd", lambda: pool_mod._launch_backward(dy, code, h, w))):
+                    names, traces = kernels_of_one_call(fn)
+                    check(len(names) == 1 and f"maxpool2x2_{way}" in names[0],
+                          f"one {way} at {shape} put {names} on the card ({traces} traces)")
+                    calls[f"{way}_{'x'.join(map(str, shape))}_{dtype}"] = names
+        flat = torch.randn(2 * 9 * 11 * 32 + 1, generator=g, device=DEVICE).to(dtype)
+        x = flat[1:].view(2, 9, 11, 32)
+        res = compare_pool(x, torch.randn((2, 4, 5, 32), generator=g, device=DEVICE).to(dtype))
+        check(res["paths"][0] == "scalar", f"the misaligned case ran {res}")
+        cases.append(res)
+    for want in ("vector", "scalar"):
+        check(any(c["paths"] == [want, want] for c in cases), f"no case reached the {want} path")
+    emit("kernels", name="maxpool2x2", cases=cases, times=times, kernels_of_a_call=calls)
+    return {"cases": cases, "times": times}
+
+
 def sweep(run, n_images: int, classes, outdir: str, tag: str, top_k: int) -> dict:
     """One sweep of the main path: `run(prefix, stats)` is valid._meta_sweep
     or valid._plain_sweep over n_images. The kernel's launch count is set to
@@ -1356,19 +1492,21 @@ class PathInputs:
 
 # the kernel counts a training path reports: bn_sums' launches each way and
 # layout copies, and bn_act's launches each way
-BN_KEYS = ("fwd", "bwd", "layout_copies", "act_fwd", "act_bwd")
+BN_KEYS = ("fwd", "bwd", "layout_copies", "act_fwd", "act_bwd", "pool_fwd", "pool_bwd")
 
 
 def zero_bn_counts() -> None:
-    """Set the launch and layout-copy counters of `bn_sums` and `bn_act` to 0."""
-    for fn in (bn_sums, bn_act):
+    """Set the launch and layout-copy counters of `bn_sums`, `bn_act` and
+    `maxpool2x2` to 0."""
+    for fn in (bn_sums, bn_act, maxpool2x2):
         fn.launches = fn.backward_launches = fn.layout_copies = 0
 
 
 def bn_counts() -> dict:
     """The counters `zero_bn_counts` set to 0, under BN_KEYS."""
     return dict(zip(BN_KEYS, (bn_sums.launches, bn_sums.backward_launches,
-                              bn_sums.layout_copies, bn_act.launches, bn_act.backward_launches)))
+                              bn_sums.layout_copies, bn_act.launches, bn_act.backward_launches,
+                              maxpool2x2.launches, maxpool2x2.backward_launches)))
 
 
 def add_counts(total: dict, got: dict) -> dict:
@@ -4172,7 +4310,7 @@ def phase_path_inputs(recorded: dict, seed: int) -> dict:
 
 
 def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
-                 long: dict, bench: dict, act: dict) -> dict:
+                 long: dict, bench: dict, act: dict, pool: dict) -> dict:
     """The summary of every kernel of the port. `served` and `trained` map
     each serving and training path to what it returned: its launches (read
     right after the path ran), and for the serving paths the candidate rows
@@ -4217,7 +4355,7 @@ def kernels_line(served: dict, worst: int, bn: dict, trained: dict, coco: dict,
         "coco_sweep_rows": {k: coco["nms"][k] for k in plain_keys},
         "bench_pipeline_rows": {k: bench["nms"][k] for k in plain_keys},
     }, long_row_entry(long, worst), *bn_kernel_entries(bn, trained, coco, bench),
-        *bn_act_entries(act, trained)]}
+        *bn_act_entries(act, trained), *pool_entries(pool, trained)]}
 
 
 def long_row_entry(long: dict, worst: int) -> dict:
@@ -4329,6 +4467,42 @@ def bn_act_entries(act: dict, trained: dict) -> list:
     return entries
 
 
+def pool_entries(pool: dict, trained: dict) -> list:
+    """`maxpool2x2_fwd` and `maxpool2x2_bwd`, timed at the bench step's
+    first pool (384, 416, 416, 32) in bfloat16, with the learnet's odd
+    (15, 13, 13, 1024) beside it; the launches are each training path's own.
+    They replace no TPU kernel: XLA lowered the pool to `reduce_window`."""
+    top, small = ("x".join(map(str, s)) for s in POOL_TIMED)
+    t, t13 = pool["times"][top], pool["times"][small]
+    entries = []
+    for way in ("fwd", "bwd"):
+        by_path = {k: v.get(f"pool_{way}", 0) for k, v in trained.items()}
+        entries.append({
+            "name": f"maxpool2x2_{way}",
+            "route": "cuda",
+            "source": "fewshot_detection_tpu_torch/csrc/maxpool.cu",
+            "replaces": None,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": 0.0,
+            "ms": t[f"{way}_ms"],
+            "card_ms": t[f"{way}_card_ms"],
+            "plain_ms": t[f"{way}_plain_ms"],
+            "plain_card_ms": t[f"{way}_plain_card_ms"],
+            "bound_ms": t[f"{way}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": t[f"{way}_library_ms"],
+            "library_card_ms": t[f"{way}_library_card_ms"],
+            "library_call": "F.max_pool2d(x, 2, 2, return_indices=True)" if way == "fwd"
+            else "aten.max_pool2d_with_indices_backward",
+            "shape": list(POOL_TIMED[0]),
+            "dtype": "bfloat16",
+            "learnet_13x13": {"shape": list(POOL_TIMED[1]), **{
+                k.split("_", 1)[1]: v for k, v in t13.items() if k.startswith(way)}},
+        })
+    return entries
+
+
 PHASES = ("device", "build", "kernels", "serve", "train", "plain_serve", "plain_train",
           "debug", "int8_serve", "native", "ckpt", "files", "workflow", "coco", "dp",
           "analysis", "bench")
@@ -4359,6 +4533,7 @@ def main() -> int:
         worst, long_synthetic = phase_kernels(args.seed)
         bn = phase_bn_kernels(args.seed)
         act = phase_bn_act_kernels(args.seed)
+        pool = phase_pool_kernels(args.seed)
     served, trained, recorded = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as outdir:
         for path, fn in (("serve", phase_serve), ("plain_serve", phase_plain_serve),
@@ -4430,7 +4605,7 @@ def main() -> int:
     check(long_rows["wider"]["shape"] == [1, LONG_ROW] and long_rows["launches"] > 0,
           f"the longest WIDER row {long_rows['wider']['shape']}")
     line = kernels_line(served, max(worst, held["nms_worst"]), bn, trained, coco, long_rows,
-                        bench, act)
+                        bench, act, pool)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Core stateless layer ops on NHWC tensors.
 
 Layers of the darknet executor, at inference and in training. Tensors are
-NHWC at every function boundary, as in the JAX package; the pooling ops hand
-PyTorch a permuted NCHW *view* of the same memory (which PyTorch sees as a
-`channels_last` tensor), so no layout copy is made in either direction.
-Training BatchNorm takes its statistics from the `bn_sums` kernel
+NHWC at every function boundary, as in the JAX package; the pooling ops that
+PyTorch computes see a permuted NCHW *view* of the same memory (which PyTorch
+sees as a `channels_last` tensor), so no layout copy is made in either
+direction. Training BatchNorm takes its statistics from the `bn_sums` kernel
 (`ops/bn_sums.py`), not from `F.batch_norm`, and its normalise + activation
-epilogue from the `bn_act` kernel (`ops/bn_act.py`).
+epilogue from the `bn_act` kernel (`ops/bn_act.py`); 2x2 stride-2 max pools
+go to the `maxpool2x2` kernels (`ops/pool2x2.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from .bn_act import bn_act
 from .bn_sums import bn_sums
+from .pool2x2 import maxpool2x2, takes as maxpool2x2_takes
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch nn.BatchNorm2d default, what the reference trained with
@@ -77,7 +79,12 @@ def _pool_nhwc(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
 
 
 def maxpool(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
-    """Standard max pooling, floor semantics (torch MaxPool2d default)."""
+    """Standard max pooling, floor semantics (torch MaxPool2d default). A 2x2
+    stride-2 pool goes to `maxpool2x2` (the kernels on the card, the plain
+    version on the CPU: `F.max_pool2d`'s values and gradients), any other to
+    `F.max_pool2d`."""
+    if size == 2 and stride == 2 and maxpool2x2_takes(x):
+        return maxpool2x2(x)
     return _pool_nhwc(x, size, stride)
 
 

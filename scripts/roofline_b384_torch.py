@@ -21,7 +21,10 @@ program, so one whole step, forward and backward, is counted as it runs:
          bytes come from the shapes their wrappers were given (bn_sums'
          forward reads x and writes 2*C floats, its backward reads x, dsum
          and dsq and writes dx; bn_act's forward reads y and writes out,
-         its backward reads dout and y and writes dy, each with the pair).
+         its backward reads dout and y and writes dy, each with the pair);
+         so do the maxpool2x2 kernels' (the forward reads x and writes y
+         and its window code, a byte an output element; the backward reads
+         dy and the code and writes dx).
 
 Then 2 warm-up and 5 timed steps give the step time, and the roofline
 shares are taken against the card's published dense bfloat16 tensor peak
@@ -195,19 +198,48 @@ def bn_act_bytes(record: list):
         act_mod._launch_forward, act_mod._launch_backward = fwd, bwd
 
 
+@contextlib.contextmanager
+def pool_bytes(record: list):
+    """Appends the bytes each maxpool2x2 kernel launch moves to `record`, by
+    standing in for the wrapper's two launch functions: the forward reads x
+    and writes y and, for a backward, a byte of code an output element; the
+    backward reads dy and the code and writes dx."""
+    from fewshot_detection_tpu_torch.ops import pool2x2 as pool_mod
+
+    fwd, bwd = pool_mod._launch_forward, pool_mod._launch_backward
+
+    def forward(x, with_code):
+        b, h, w, c = x.shape
+        out = b * (h // 2) * (w // 2) * c
+        record.append((x.numel() + out) * x.element_size() + (out if with_code else 0))
+        return fwd(x, with_code)
+
+    def backward(dy, code, h, w):
+        record.append(dy.numel() * dy.element_size() + code.numel()
+                      + dy.shape[0] * h * w * dy.shape[3] * dy.element_size())
+        return bwd(dy, code, h, w)
+
+    pool_mod._launch_forward, pool_mod._launch_backward = forward, backward
+    try:
+        yield record
+    finally:
+        pool_mod._launch_forward, pool_mod._launch_backward = fwd, bwd
+
+
 def count_step(trainer, params, mom, batch, seen: int) -> dict:
     """One training step with its FLOPs and bytes counted (the step is
     taken: params and mom move)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    kernel, epilogue = [], []
+    kernel, epilogue, pools = [], [], []
     with FlopCounterMode(display=False) as flops, _byte_counter(trainer.device) as mode, \
-            bn_sums_bytes(kernel), bn_act_bytes(epilogue):
+            bn_sums_bytes(kernel), bn_act_bytes(epilogue), pool_bytes(pools):
         _, _, metrics = trainer.step(params, mom, batch, seen=seen, lr=1e-5)
         float(metrics["loss"])
     return {"flops": flops.get_total_flops(), "aten_bytes": mode.bytes, "aten_ops": mode.ops,
             "bn_sums_bytes": sum(kernel), "bn_sums_launches": len(kernel),
-            "bn_act_bytes": sum(epilogue), "bn_act_launches": len(epilogue)}
+            "bn_act_bytes": sum(epilogue), "bn_act_launches": len(epilogue),
+            "pool_bytes": sum(pools), "pool_launches": len(pools)}
 
 
 def main(argv=None):
@@ -240,7 +272,8 @@ def main(argv=None):
     batch = bench_torch.make_batch(BATCH, dev, SIZE, N_CLS)
     counted = count_step(trainer, p, m, batch, seen=20000)
     flops = counted["flops"]
-    bytes_acc = counted["aten_bytes"] + counted["bn_sums_bytes"] + counted["bn_act_bytes"]
+    bytes_acc = (counted["aten_bytes"] + counted["bn_sums_bytes"] + counted["bn_act_bytes"]
+                 + counted["pool_bytes"])
     want = spec_flops(trainer.spec, BATCH, N_CLS, SIZE)
 
     for i in range(WARMUP):
@@ -273,6 +306,8 @@ def main(argv=None):
         "bn_sums_launches_per_step": counted["bn_sums_launches"],
         "bn_act_bytes_per_step": counted["bn_act_bytes"],
         "bn_act_launches_per_step": counted["bn_act_launches"],
+        "pool_bytes_per_step": counted["pool_bytes"],
+        "pool_launches_per_step": counted["pool_launches"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if on_card else None,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
     }

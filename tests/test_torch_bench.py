@@ -298,6 +298,20 @@ def test_roofline_byte_count_rules(roofline, monkeypatch):
     assert calls == ["f", "b"]
     assert record == [2 * 10 * 6 * 2 + 2 * 6 * 4, 3 * 10 * 6 * 2 + 4 * 6 * 4]
 
+    from fewshot_detection_tpu_torch.ops import pool2x2 as pool_mod
+
+    calls.clear()
+    monkeypatch.setattr(pool_mod, "_launch_forward", lambda *t: calls.append("f"))
+    monkeypatch.setattr(pool_mod, "_launch_backward", lambda *t: calls.append("b"))
+    x = torch.zeros(2, 5, 6, 8, dtype=torch.bfloat16)  # pools to (2, 2, 3, 8): 96 values
+    code = torch.zeros(2, 2, 3, 8, dtype=torch.uint8)
+    with roofline.pool_bytes([]) as record:
+        pool_mod._launch_forward(x, True)
+        pool_mod._launch_forward(x, False)
+        pool_mod._launch_backward(x[:, :2, :3], code, 5, 6)
+    assert calls == ["f", "f", "b"]
+    assert record == [(480 + 96) * 2 + 96, (480 + 96) * 2, 96 * 2 + 96 + 480 * 2]
+
 
 def test_roofline_refuses_a_card_without_a_published_peak(roofline):
     assert roofline.peaks_of("NVIDIA H100 80GB HBM3") == {"bf16_tflops": 989.4,

@@ -4,7 +4,8 @@ one shared no-op; on, spans nest with their parents, a step identifier and
 their self time; a CPU MetaTrainer and PlainTrainer step (R = 2) give
 `train.step` over `train.to_device`, one `train.forward` a group,
 `train.backward` and `train.update`, in that order (the plain trainer's
-`train.loss` inside each forward); `format_loss_line`
+`train.loss` inside each forward), and on the card counts the kernel
+launches of the benchmark's networks; `format_loss_line`
 gives `train.sync`; the spans share the profiler's clock; `trace()` writes
 them into its file, and `trace_summary` gives the device's idle time by
 innermost span."""
@@ -189,9 +190,11 @@ def test_a_train_step_records_its_phases_in_order(kind, tmp_path):
     want = sum(torch.as_tensor(batch[k]).nbytes for k in trainer._KEYS)
     # on the CPU nothing takes the pinned ring (train/staging.py)
     assert spans[1].counts == {"bytes": want, "staged_bytes": 0, "chunks": 0, "slot_waits": 0}
-    # the plain bn_sums and bn_act versions serve CPU tensors: no kernel launches
+    # the plain bn_sums, bn_act and maxpool2x2 versions serve CPU tensors: no
+    # kernel launches
     assert step.counts == {"bn_sums_forward": 0, "bn_sums_backward": 0,
-                           "bn_act_forward": 0, "bn_act_backward": 0}
+                           "bn_act_forward": 0, "bn_act_backward": 0,
+                           "pool_forward": 0, "pool_backward": 0}
     for a, b in zip(spans[1:6], spans[2:6]):
         assert a.end <= b.start
     assert step.start <= spans[1].start and spans[5].end <= step.end <= spans[6].start
@@ -464,3 +467,54 @@ def test_a_traced_card_step_puts_its_idle_down_to_its_spans(card, tmp_path):
                 <= step["ts"] + step["dur"]]
         last = max(t + shift(t) for t in ends)
         assert e["ts"] + e["dur"] >= last - SLACK_US
+
+
+# (networks, 2x2 stride-2 pools a step of one replica group): the meta
+# detector's 5 backbone and 6 learnet pools, YOLOv2's 5, YOLOv3 none
+STEP_POOLS = [(("darknet_dynamic.cfg", "reweighting_net.cfg"), 11), (("yolo-voc.cfg",), 5),
+              (("yolov3.cfg",), 0)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cfgs,pools", STEP_POOLS, ids=["meta", "yolov2", "yolov3"])
+def test_a_card_step_counts_its_pool_launches(card, cfgs, pools):
+    """One step of each network of the benchmark's cells at 64 px (R = 1):
+    `train.step` counts one `maxpool2x2` launch each way a 2x2 stride-2
+    pool, and the step puts no PyTorch pooling kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    specs = [build_spec(parse_cfg(cfg(n))) for n in cfgs]
+    r = np.random.RandomState(5)
+    size = 64
+    if len(specs) == 2:
+        spec = tm.MetaSpec(*specs)
+        params = tm.init_meta_params(spec, 0)
+        tp = require_grads({k: from_jax_params(getattr(spec, k), params[k], "cuda")
+                            for k in ("darknet", "learnet")})
+        target = np.zeros((1, 2, N_CLS, 50, 5), np.float32)
+        target[:, :, 0, 0] = [0, 0.5, 0.5, 0.3, 0.3]
+        batch = {"x": r.rand(1, 2, size, size, 3).astype(np.float32),
+                 "metax": r.rand(1, N_CLS, size, size, 3).astype(np.float32),
+                 "mask": (r.rand(1, N_CLS, size, size, 1) > 0.5).astype(np.float32),
+                 "target": target, "keep": np.ones((1, 2 * N_CLS), np.float32)}
+        trainer = MetaTrainer(spec, weight_decay=5e-4, device="cuda")
+    else:
+        (spec,) = specs
+        tp = require_grads(from_jax_params(spec, init_params(spec, 0), "cuda"))
+        target = np.zeros((1, 2, 50, 5), np.float32)
+        target[:, :, 0] = [1, 0.5, 0.5, 0.3, 0.3]
+        batch = {"x": r.rand(1, 2, size, size, 3).astype(np.float32), "target": target,
+                 "keep": np.ones((1, 2), np.float32)}
+        trainer = PlainTrainer(spec, weight_decay=5e-4, device="cuda")
+    mom = init_momentum(tp)
+    tp, mom, _ = trainer.step(tp, mom, batch, seen=64, lr=1e-3)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        with prof.recording() as spans:
+            tp, mom, metrics = trainer.step(tp, mom, batch, seen=128, lr=1e-3)
+            format_loss_line(128, metrics)
+        torch.cuda.synchronize()
+    (step,) = [s for s in spans if s.name == "train.step"]
+    assert (step.counts["pool_forward"], step.counts["pool_backward"]) == (pools, pools)
+    names = [ev.key for ev in p.key_averages() if ev.device_type.name == "CUDA"]
+    assert not [n for n in names if "pool" in n.lower() and "maxpool2x2" not in n], names
