@@ -137,7 +137,8 @@ def propagate_shapes(
             if stride > 1:
                 w //= stride
                 h //= stride
-            # stride-1 maxpool keeps spatial dims (replicate-padded)
+            # a stride-1 maxpool keeps spatial dims (size 2 replicate-padded,
+            # an odd size centred)
             push("max")
         elif kind in ("globalmax", "globalavg", "avgpool"):
             w = 1
@@ -163,24 +164,23 @@ def propagate_shapes(
         elif kind == "route":
             ind = len(shapes)
             layers = [int(i) if int(i) > 0 else int(i) + ind for i in block["layers"].split(",")]
-            if len(layers) == 1:
-                src = shapes[layers[0]]
-                w, h, c = src.width, src.height, src.filters
-            elif len(layers) == 2:
-                a, b = shapes[layers[0]], shapes[layers[1]]
-                if int(block.get("concat", "1")) == 0:
-                    # tuple route (darknet_meta.py:166-168): nothing is
-                    # concatenated, so no spatial constraint; the first
-                    # element is the feature map that flows onward
-                    w, h, c = a.width, a.height, a.filters
-                else:
+            srcs = [shapes[i] for i in layers]
+            a = srcs[0]
+            if int(block.get("concat", "1")) == 0:
+                # tuple route (darknet_meta.py:166-168): nothing is
+                # concatenated, so no spatial constraint; the first
+                # element is the feature map that flows onward
+                if len(srcs) > 2:
+                    raise ValueError(f"route at layer {ind}: a tuple route takes 1 or 2 sources")
+                w, h, c = a.width, a.height, a.filters
+            else:
+                # a concat route of any number of sources (YOLOv4's SPP joins four)
+                for b in srcs[1:]:
                     if (a.width, a.height) != (b.width, b.height):
                         raise ValueError(
                             f"route at layer {ind}: spatial mismatch {a} vs {b}"
                         )
-                    w, h, c = a.width, a.height, a.filters + b.filters
-            else:
-                raise ValueError("route supports 1 or 2 source layers")
+                w, h, c = a.width, a.height, sum(s.filters for s in srcs)
             push("route")
         elif kind == "shortcut":
             ind = len(shapes)

@@ -2,10 +2,12 @@
 
 `init_params` / `apply_network` are the init/apply pair for a compiled
 `NetSpec`: plain YOLOv2 backbones, YOLOv3 (residual shortcuts, upsampling,
-two-source routes and three [yolo] heads; cfg/yolov3.cfg) and the
-reweighting learnet (cfg/reweighting_net.cfg). `Walk` runs every static
-layer kind for every network; the meta detection path (models/meta.py)
-subclasses it for the dynamic convs and the class-broadcast routes.
+two-source routes and three [yolo] heads; cfg/yolov3.cfg), YOLOv4 (Mish,
+cross-stage-partial routes, SPP's centred pools and four-source route;
+cfg/yolov4.cfg) and the reweighting learnet (cfg/reweighting_net.cfg).
+`Walk` runs every static layer kind for every network; the meta detection
+path (models/meta.py) subclasses it for the dynamic convs and the
+class-broadcast routes.
 
 Activations are NHWC at every boundary, as in the JAX package. Parameters
 are the tensor tree of `models.convert` (conv weights OIHW). The reference's
@@ -29,6 +31,7 @@ from ..ops.layers import (
     global_avgpool,
     global_maxpool,
     maxpool,
+    maxpool_centred,
     maxpool_stride1,
     reorg,
     stem_s2d_conv_pool,
@@ -141,7 +144,7 @@ class Walk:
     layers (`splits`) and the [yolo] heads' inputs (`heads`), in order.
 
     `layer` runs every static kind. A dynamic conv goes to `dynamic_conv`
-    and the two sources of a route are joined by `join`: models/meta.py's
+    and the sources of a route are joined by `join`: models/meta.py's
     detection walk overrides these two, and the static network's walk
     refuses a dynamic conv and concatenates the sources."""
 
@@ -194,7 +197,10 @@ class Walk:
                     y = conv2d(x, p["w"], layer.stride, layer.pad, layer.groups)
                     x = self.epilogue(layer, p, y)
         elif kind == "maxpool":
-            x = maxpool_stride1(x) if layer.stride == 1 else maxpool(x, layer.size, layer.stride)
+            if layer.stride != 1:
+                x = maxpool(x, layer.size, layer.stride)
+            else:
+                x = maxpool_stride1(x) if layer.size == 2 else maxpool_centred(x, layer.size)
         elif kind == "reorg":
             x = reorg(x, layer.stride)
         elif kind == "route":
@@ -246,9 +252,10 @@ class Walk:
         """A conv whose filters are class codes: only the meta walk has them."""
         raise ValueError("dynamic conv in a static network — use models.meta")
 
-    def join(self, layer: LayerSpec, a: torch.Tensor, b: torch.Tensor):
-        """The output of a two-source route: the sources side by side."""
-        return torch.cat([a, b], dim=-1)
+    def join(self, layer: LayerSpec, *sources: torch.Tensor):
+        """The output of a route of two or more sources: the sources side by
+        side, in the cfg's order."""
+        return torch.cat(sources, dim=-1)
 
 
 def apply_network(

@@ -298,7 +298,11 @@ class _DetectWalk(Walk):
             return x
         return self.epilogue(layer, p, dynamic_conv_general(x, dw, layer, is_first=is_first))
 
-    def join(self, layer: LayerSpec, a: torch.Tensor, b: torch.Tensor):
+    def join(self, layer: LayerSpec, *sources: torch.Tensor):
+        if len(sources) != 2:
+            raise ValueError(f"layer {layer.index}: the meta detection walk joins two "
+                             f"sources, the route has {len(sources)}")
+        a, b = sources
         if not layer.concat:
             # tuple passthrough, no broadcast (darknet_meta.py:166-168);
             # consumed by a downstream dynamic conv as (input, dynamic_weight)

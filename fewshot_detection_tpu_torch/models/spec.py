@@ -13,6 +13,12 @@ import dataclasses
 
 from ..config.darkcfg import propagate_shapes
 
+# the activations the port computes (`ops/layers.py:_activate`); a cfg that
+# names another is refused when its spec is built
+ACTIVATIONS = ("leaky", "relu", "linear", "mish")
+# the box losses of `ops/yolo_loss.py`
+IOU_LOSSES = ("mse", "ciou")
+
 
 @dataclasses.dataclass(frozen=True)
 class RegionSpec:
@@ -46,7 +52,15 @@ class YoloSpec:
     input pixels, the indices of those this head predicts (`mask`), the
     class count, and the IoU above which a prediction's no-object term is
     dropped (`ignore_thresh`). `truth_thresh` is read and not used: the
-    published cfgs set it to 1, where darknet's branch never fires."""
+    published cfgs set it to 1, where darknet's branch never fires.
+
+    YOLOv4's keys (AlexeyAB's yolo_layer.c), each at the value that leaves
+    YOLOv3's loss as it is: `scale_x_y` stretches the decoded centre about
+    its cell's middle, `iou_thresh` assigns a truth also to every other
+    anchor (of any head's mask) whose shape IoU with it exceeds the
+    threshold (1: none),
+    `iou_normalizer` and `cls_normalizer` weigh the box and class terms, and
+    `iou_loss` names the box term ("mse": YOLOv3's, "ciou": 1 - CIoU)."""
 
     mask: tuple[int, ...] = ()
     anchors: tuple[float, ...] = ()
@@ -54,6 +68,11 @@ class YoloSpec:
     num: int = 0
     ignore_thresh: float = 0.5
     truth_thresh: float = 1.0
+    scale_x_y: float = 1.0
+    iou_thresh: float = 1.0
+    iou_normalizer: float = 1.0
+    cls_normalizer: float = 1.0
+    iou_loss: str = "mse"
 
     @property
     def anchor_wh(self) -> tuple[tuple[float, float], ...]:
@@ -155,6 +174,10 @@ def build_spec(blocks: list[dict[str, str]]) -> NetSpec:
     for block in blocks[1:]:
         kind = block["type"]
         ind = len(layers)
+        act = block.get("activation", "linear")
+        if kind in ("convolutional", "shortcut", "connected") and act not in ACTIVATIONS:
+            raise ValueError(f"layer {ind}: activation {act!r}; the port computes "
+                             f"{', '.join(ACTIVATIONS)}")
         if kind == "convolutional":
             filters = int(block["filters"])
             size = int(block["size"])
@@ -185,14 +208,19 @@ def build_spec(blocks: list[dict[str, str]]) -> NetSpec:
                 dynamic_count += 1
             prev_c = filters
         elif kind == "maxpool":
+            size, stride = int(block["size"]), int(block["stride"])
+            if stride == 1 and size != 2 and size % 2 == 0:
+                raise ValueError(f"layer {ind}: a stride-1 max pool of even size {size}: the "
+                                 "port computes size 2 (replicate-padded) and odd sizes "
+                                 "(centred) only")
             layers.append(
                 LayerSpec(
                     index=ind,
                     kind="maxpool",
                     in_channels=prev_c,
                     out_channels=prev_c,
-                    size=int(block["size"]),
-                    stride=int(block["stride"]),
+                    size=size,
+                    stride=stride,
                 )
             )
         elif kind in ("avgpool", "globalavg", "globalmax", "softmax"):
@@ -221,18 +249,9 @@ def build_spec(blocks: list[dict[str, str]]) -> NetSpec:
                 for i in block["layers"].split(",")
             )
             concat = int(block.get("concat", "1")) == 1
-            if len(srcs) == 1:
-                prev_c = out_c[srcs[0]]
-            elif len(srcs) == 2:
-                # tuple (concat=0) routes carry the first source's feature
-                # map onward; concat routes sum channels
-                prev_c = (
-                    out_c[srcs[0]] + out_c[srcs[1]]
-                    if concat
-                    else out_c[srcs[0]]
-                )
-            else:
-                raise ValueError("route supports 1 or 2 sources")
+            # tuple (concat=0) routes carry the first source's feature map
+            # onward; concat routes sum their sources' channels
+            prev_c = sum(out_c[s] for s in srcs) if concat else out_c[srcs[0]]
             layers.append(
                 LayerSpec(
                     index=ind,
@@ -297,7 +316,18 @@ def build_spec(blocks: list[dict[str, str]]) -> NetSpec:
                 num=int(block["num"]),
                 ignore_thresh=float(block.get("ignore_thresh", "0.5")),
                 truth_thresh=float(block.get("truth_thresh", "1")),
+                scale_x_y=float(block.get("scale_x_y", "1")),
+                iou_thresh=float(block.get("iou_thresh", "1")),
+                iou_normalizer=float(block.get("iou_normalizer", "1")),
+                cls_normalizer=float(block.get("cls_normalizer", "1")),
+                iou_loss=block.get("iou_loss", "mse"),
             )
+            if yolo.iou_loss not in IOU_LOSSES:
+                raise ValueError(f"layer {ind}: iou_loss={yolo.iou_loss!r}; the port computes "
+                                 f"{' and '.join(IOU_LOSSES)}")
+            if yolo.iou_loss == "mse" and yolo.scale_x_y != 1.0:
+                raise ValueError(f"layer {ind}: scale_x_y={yolo.scale_x_y} with the mse box "
+                                 "terms, which are YOLOv3's and have no scale_x_y")
             layers.append(LayerSpec(index=ind, kind="yolo", out_channels=prev_c, yolo=yolo))
         elif kind == "region":
             anchors = tuple(float(a) for a in block["anchors"].split(","))

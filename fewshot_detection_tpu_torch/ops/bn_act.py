@@ -3,10 +3,11 @@ each way, and the plain versions.
 
 `bn_act(y, inv, bias, activation)` normalises a conv output y (..., C) with
 the float32 per-channel pair that `layers.bn_train_affine` takes from the
-`bn_sums` statistics, and applies the activation (leaky 0.1, relu, or
-anything else as linear, as `layers._activate` reads it). It replaces no TPU
-kernel: XLA fused this epilogue on the TPU, and eager PyTorch ran it as about
-five elementwise kernels forward and ten backward. The kernel source is
+`bn_sums` statistics, and applies the activation (leaky 0.1, relu or
+linear, as `layers._activate` reads them; any other name raises, and
+`layers.bn_train_activate` runs Mish after the linear epilogue). It
+replaces no TPU kernel: XLA fused this epilogue on the TPU, and eager
+PyTorch ran it as about five elementwise kernels forward and ten backward. The kernel source is
 `csrc/bn_act.cu`; `ops/_build.py` compiles it with `nvcc` for sm_90a at first
 use and loads it with `ctypes`.
 
@@ -51,7 +52,7 @@ from ._build import launch_on, load_library
 # the workspace of a device and stream, shared with bn_sums' kernels
 from .bn_sums import _workspace, vector_width
 
-# activation codes of csrc/bn_act.cu; any other name is linear
+# activation codes of csrc/bn_act.cu
 _CODES = {"leaky": 0, "relu": 1}
 _LINEAR = 2
 # threads of a block along the channels and along the rows, loads a thread
@@ -87,7 +88,12 @@ def _kernels():
 
 
 def activation_code(activation: str) -> int:
-    return _CODES.get(activation, _LINEAR)
+    """csrc/bn_act.cu's code of leaky, relu or linear; any other raises."""
+    if activation == "linear":
+        return _LINEAR
+    if activation not in _CODES:
+        raise ValueError(f"bn_act computes leaky, relu and linear, not {activation!r}")
+    return _CODES[activation]
 
 
 def row_blocks(m: int, c: int, vec: int = 1, backward: bool = False) -> int:
@@ -225,8 +231,9 @@ def grad_at_z(dout: torch.Tensor, y: torch.Tensor, inv: torch.Tensor, bias: torc
               activation: str) -> torch.Tensor:
     """The gradient at z = y*inv + bias (the pair cast to y's dtype) as
     autograd forms it from `dout`: leaky's two `where` backwards and the
-    scalar product's, summed; relu's `threshold_backward`; linear's dout."""
-    if activation not in _CODES:
+    scalar product's, summed; relu's `threshold_backward`; linear's dout.
+    Any other activation raises."""
+    if activation_code(activation) == _LINEAR:
         return dout
     z = y * inv.to(y.dtype) + bias.to(y.dtype)
     if activation == "relu":
@@ -267,6 +274,7 @@ def bn_act(y: torch.Tensor, inv: torch.Tensor, bias: torch.Tensor, activation: s
     `bn_act.layout_copies` counts inputs and gradients that had to be copied
     into row-major order first."""
     _check(y)
+    activation_code(activation)  # an activation the kernels lack raises on either device
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bn_act: unsupported device {y.device}")
     if not y.is_contiguous():

@@ -6,8 +6,9 @@ PyTorch computes see a permuted NCHW *view* of the same memory (which PyTorch
 sees as a `channels_last` tensor), so no layout copy is made in either
 direction. Training BatchNorm takes its statistics from the `bn_sums` kernel
 (`ops/bn_sums.py`), not from `F.batch_norm`, and its normalise + activation
-epilogue from the `bn_act` kernel (`ops/bn_act.py`); 2x2 stride-2 max pools
-go to the `maxpool2x2` kernels (`ops/pool2x2.py`).
+epilogue from the `bn_act` kernel (`ops/bn_act.py`), followed by PyTorch's
+Mish (`ops/mish.py`) where a layer asks for it; 2x2 stride-2 max pools go
+to the `maxpool2x2` kernels (`ops/pool2x2.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from .bn_act import bn_act
 from .bn_sums import bn_sums
+from .mish import mish
 from .pool2x2 import maxpool2x2, takes as maxpool2x2_takes
 
 BN_EPS = 1e-5
@@ -49,11 +51,17 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
 
 
 def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """A cfg's activation of x: leaky (0.1), relu, mish or linear; any other
+    name raises (`models/spec.py:ACTIVATIONS`)."""
     if activation == "leaky":
         return leaky_relu(x, 0.1)
     if activation == "relu":
         return torch.relu(x)
-    return x
+    if activation == "mish":
+        return mish(x)
+    if activation == "linear":
+        return x
+    raise ValueError(f"activation {activation!r}: the port computes leaky, relu, mish and linear")
 
 
 def reorg(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
@@ -96,6 +104,15 @@ def maxpool_stride1(x: torch.Tensor) -> torch.Tensor:
     """
     x = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1), mode="replicate")
     return F.max_pool2d(x, 2, 1).permute(0, 2, 3, 1)
+
+
+def maxpool_centred(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Stride-1 max pool of odd `size` that keeps the spatial dims: darknet's
+    window (maxpool_layer.c, pad = size - 1), centred on the output, with
+    the positions outside the map left out of the max (YOLOv4's SPP pools
+    of 5, 9 and 13; `models/spec.py` refuses an even size other than 2).
+    Computed by `F.max_pool2d` on the channels-last view."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), size, 1, size // 2).permute(0, 2, 3, 1)
 
 
 def upsample_nearest(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -242,6 +259,10 @@ def bn_train_activate(y: torch.Tensor, bn: dict, activation: str) -> tuple[torch
     The statistics come from `bn_sums`, the normalise + activation epilogue
     from `bn_act`, whose backward rebuilds the normalised values from the
     conv output and the pair it keeps: the epilogue saves no tensor of its
-    own, which is what the JAX trainer's rematerialization saves too."""
+    own, which is what the JAX trainer's rematerialization saves too. Mish,
+    which `bn_act` does not compute, follows its linear epilogue
+    (`ops/mish.py`, which saves the normalised values)."""
     inv, bias, new_stats = bn_train_affine(y, bn)
+    if activation == "mish":
+        return mish(bn_act(y, inv, bias, "linear")), new_stats
     return bn_act(y, inv, bias, activation), new_stats

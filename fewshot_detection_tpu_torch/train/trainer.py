@@ -34,6 +34,7 @@ from ..models.darknet import apply_network
 from ..models.spec import NetSpec
 from ..ops.bn_act import bn_act
 from ..ops.bn_sums import bn_sums
+from ..ops.mish import mish
 from ..ops.pool2x2 import maxpool2x2
 from ..ops.region_loss import region_loss, region_loss_v2
 from ..ops.yolo_loss import yolo_loss
@@ -147,13 +148,15 @@ class _GroupTrainer:
         the ranks with a mesh). With a mesh, `batch` holds this rank's
         groups only. Spans: `train.step`, which starts a step identifier
         and counts the step's `bn_sums`, `bn_act` and `maxpool2x2` kernel
-        launches (`pool_forward`, `pool_backward`), around those of
+        launches (`pool_forward`, `pool_backward`) and its Mish calls each
+        way (`mish_forward`, `mish_backward`: `ops/mish.py`), around those of
         `loss_and_grads`, `train.allreduce` (with a mesh) and
         `train.update` (the BN merge, `sgd_update`, `_apply_bn`)."""
         with step_span("train.step") as sp:
             fwd, bwd = bn_sums.launches, bn_sums.backward_launches
             act_fwd, act_bwd = bn_act.launches, bn_act.backward_launches
             pool_fwd, pool_bwd = maxpool2x2.launches, maxpool2x2.backward_launches
+            mish_fwd, mish_bwd = mish.launches, mish.backward_launches
             _, grads, bns, metrics = self.loss_and_grads(params, batch, seen)
             if self.mesh is not None:
                 # this rank's groups summed, then everything summed over the
@@ -180,6 +183,8 @@ class _GroupTrainer:
             sp.add("bn_act_backward", bn_act.backward_launches - act_bwd)
             sp.add("pool_forward", maxpool2x2.launches - pool_fwd)
             sp.add("pool_backward", maxpool2x2.backward_launches - pool_bwd)
+            sp.add("mish_forward", mish.launches - mish_fwd)
+            sp.add("mish_backward", mish.backward_launches - mish_bwd)
         return params, mom, metrics
 
 

@@ -18,12 +18,14 @@ def log(message: str) -> None:
 
 
 def format_loss_line(seen: int, metrics: dict) -> str:
-    """The step's loss line. The YOLOv3 loss's `positives` (one count a
-    head) and `ignored` come in the same transfer and end the line."""
+    """The step's loss line. The [yolo] loss's `loss_iou` (its CIoU box
+    term, where the heads take one), `positives` (one count a head),
+    `extra_positives` (where `iou_thresh` assigns any) and `ignored` come in
+    the same transfer and end the line."""
     # fetch the whole metrics dict in ONE device transfer: a float() per
     # scalar would synchronise with the device ten times a step (the
     # `train.sync` span)
-    extra = [k for k in ("positives", "ignored") if k in metrics]
+    extra = [k for k in ("loss_iou", "positives", "extra_positives", "ignored") if k in metrics]
     with span("train.sync"):
         vals = torch.cat([torch.as_tensor(metrics[k]).to(torch.float64).reshape(-1)
                           for k in _KEYS + tuple(extra)]).tolist()
@@ -34,7 +36,14 @@ def format_loss_line(seen: int, metrics: dict) -> str:
         f"y {g['loss_y']:f}, w {g['loss_w']:f}, h {g['loss_h']:f}, "
         f"conf {g['loss_conf']:f}, cls {g['loss_cls']:f}, total {g['loss']:f}"
     )
-    if extra:
-        *pos, ign = (int(v) for v in vals[len(_KEYS):])
-        line += f", positives {'/'.join(map(str, pos))}, ignored {ign}"
+    rest = vals[len(_KEYS):]
+    if "loss_iou" in metrics:
+        line += f", iou {rest.pop(0):f}"
+    if "positives" in metrics:
+        n = torch.as_tensor(metrics["positives"]).numel()
+        line += f", positives {'/'.join(str(int(v)) for v in rest[:n])}"
+        rest = rest[n:]
+        if "extra_positives" in metrics:
+            line += f", extra {int(rest.pop(0))}"
+        line += f", ignored {int(rest.pop(0))}"
     return line

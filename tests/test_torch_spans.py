@@ -149,10 +149,10 @@ def _meta_setup(dtype=np.float32):
     return MetaTrainer(spec, weight_decay=5e-4, device="cpu"), tp, batch
 
 
-def _plain_setup(tmp_path):
+def _plain_setup(tmp_path, activation="leaky"):
     path = os.path.join(tmp_path, "plain.cfg")
     with open(path, "w") as f:
-        f.write(PLAIN_CFG)
+        f.write(PLAIN_CFG.replace("activation=leaky", f"activation={activation}"))
     spec = build_spec(parse_cfg(path))
     tp = require_grads(from_jax_params(spec, init_params(spec, 0), "cpu"))
     r = np.random.RandomState(4)
@@ -164,16 +164,24 @@ def _plain_setup(tmp_path):
     return PlainTrainer(spec, weight_decay=5e-4, device="cpu"), tp, batch
 
 
-@pytest.mark.parametrize("kind", ["meta", "plain"])
+# Mish calls a step: the plain cfg's two BN convs as Mish layers, over R = 2
+# groups, each way; none where no layer asks for Mish
+MISH_CALLS = {"meta": 0, "plain": 0, "plain_mish": 4}
+
+
+@pytest.mark.parametrize("kind", ["meta", "plain", "plain_mish"])
 def test_a_train_step_records_its_phases_in_order(kind, tmp_path):
-    trainer, tp, batch = _meta_setup() if kind == "meta" else _plain_setup(str(tmp_path))
+    if kind == "meta":
+        trainer, tp, batch = _meta_setup()
+    else:
+        trainer, tp, batch = _plain_setup(str(tmp_path), "mish" if kind == "plain_mish" else "leaky")
     mom = init_momentum(tp)
     with prof.recording() as spans:
         tp, mom, metrics = trainer.step(tp, mom, batch, seen=64, lr=1e-3)
         line = format_loss_line(64, metrics)
     assert line.startswith("64: nGT ")
     loss = [s for s in spans if s.name == "train.loss"]
-    if kind == "plain":  # the plain trainer's loss, inside each group's forward
+    if kind != "meta":  # the plain trainer's loss, inside each group's forward
         assert [spans[s.parent].name for s in loss] == ["train.forward"] * 2
         assert [s.counts for s in loss] == [
             {"heads": 1, "predictions": (SIZE // 2) ** 2 * 5, "truth_rows": 50}] * 2
@@ -191,10 +199,13 @@ def test_a_train_step_records_its_phases_in_order(kind, tmp_path):
     # on the CPU nothing takes the pinned ring (train/staging.py)
     assert spans[1].counts == {"bytes": want, "staged_bytes": 0, "chunks": 0, "slot_waits": 0}
     # the plain bn_sums, bn_act and maxpool2x2 versions serve CPU tensors: no
-    # kernel launches
+    # kernel launches; Mish is PyTorch's on either device, one call each way
+    # a Mish layer and group
+    n = MISH_CALLS[kind]
     assert step.counts == {"bn_sums_forward": 0, "bn_sums_backward": 0,
                            "bn_act_forward": 0, "bn_act_backward": 0,
-                           "pool_forward": 0, "pool_backward": 0}
+                           "pool_forward": 0, "pool_backward": 0,
+                           "mish_forward": n, "mish_backward": n}
     for a, b in zip(spans[1:6], spans[2:6]):
         assert a.end <= b.start
     assert step.start <= spans[1].start and spans[5].end <= step.end <= spans[6].start
